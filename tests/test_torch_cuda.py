@@ -1,0 +1,101 @@
+"""The CUDA propagation kernel against its plain PyTorch twin, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
+one. The file imports no JAX, so on a machine without it run:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: pred to atol 1e-4 (a convex mix of labels in [0, 1]; the kernel
+and cuBLAS sum the dot products in other orders), argmax exactly equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+from radar_sounder_crw_tpu_torch.ops.labelprop import (
+    NEG_INVALID,
+    LabelPropConfig,
+    _prop_step,
+    propagate_labels,
+    radius_mask,
+)
+
+pytestmark = pytest.mark.cuda
+ATOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(K, N, C, M, radius, nslots, seed, ties, device):
+    rng = np.random.default_rng(seed)
+    if ties:  # dyadic values: exact dot products, real ties
+        feats = rng.integers(-2, 3, (K, N, C)).astype(np.float32) / 2
+        query = rng.integers(-2, 3, (N, C)).astype(np.float32) / 2
+    else:
+        feats = rng.standard_normal((K, N, C)).astype(np.float32)
+        feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+        query = rng.standard_normal((N, C)).astype(np.float32)
+        query /= np.linalg.norm(query, axis=-1, keepdims=True)
+    labels = rng.random((K, N, M)).astype(np.float32)
+    valid = (rng.random(K) < 0.9) & (np.arange(K) < nslots)
+    valid[0] = True
+    bias = np.where(valid, 0.0, NEG_INVALID).astype(np.float32)
+    mask = radius_mask(N, 1, radius)
+    return [torch.as_tensor(a, device=device) for a in (feats, query, mask, bias, labels)]
+
+
+@pytest.mark.parametrize(
+    "K,N,C,M,knn,radius,temp,nslots,ties",
+    [
+        (101, 190, 128, 6, 20, 60, 0.01, 101, False),  # MC3 step, saturated ring
+        (101, 190, 128, 6, 20, 60, 0.01, 12, False),  # MC3 step, valid prefix
+        (101, 113, 128, 5, 20, 10, 0.1, 101, False),  # SHARAD step
+        (101, 113, 128, 5, 20, 10, 0.1, 50, True),  # tie-heavy
+        (4, 5, 8, 3, 30, 3, 0.07, 2, False),  # knn above the candidate count
+        (7, 30, 7, 4, 9, 5, 0.07, 7, False),  # C not a multiple of 4
+        (160, 400, 64, 4, 20, 30, 0.05, 160, False),  # column in global scratch
+    ],
+)
+def test_kernel_matches_plain_step(cuda, K, N, C, M, knn, radius, temp, nslots, ties):
+    args = _inputs(K, N, C, M, radius, nslots, 0, ties, cuda)
+    before = labelprop_cuda.launches["prop_step"]
+    got = labelprop_cuda.prop_step(*args, temp, knn, nslots)
+    want = _prop_step(*args, temp, knn, nslots)
+    torch.cuda.synchronize()
+    assert labelprop_cuda.launches["prop_step"] == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= ATOL
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_propagation_cuda_matches_plain(cuda):
+    rng = np.random.default_rng(3)
+    T, N, C, M = 30, 40, 32, 4
+    emb = rng.standard_normal((T, N, C)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    seed = np.eye(M, dtype=np.float32)[rng.integers(0, M, N)]
+    cfg = LabelPropConfig(cxt_size=8, radius=6, temperature=0.07, knn=5, long_mem=(0, 3))
+    before = labelprop_cuda.launches["prop_step"]
+    soft_k, pred_k = propagate_labels(emb, seed, cfg, kernel="cuda")
+    assert labelprop_cuda.launches["prop_step"] == before + T - 1
+    soft_p, pred_p = propagate_labels(emb, seed, cfg, kernel="torch")
+    assert (soft_k - soft_p).abs().max().item() <= ATOL
+    assert torch.equal(pred_k, pred_p)
+
+
+def test_kernel_rejects_bad_inputs(cuda):
+    args = _inputs(4, 6, 8, 3, 3, 4, 0, False, cuda)
+    with pytest.raises(ValueError, match="nslots"):
+        labelprop_cuda.prop_step(*args, 0.1, 3, 5)
+    with pytest.raises(ValueError, match="knn"):
+        labelprop_cuda.prop_step(*args, 0.1, 10**6, 4)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        labelprop_cuda.prop_step(args[0].double(), *args[1:], 0.1, 3, 4)
