@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one line each, any failure exits non-zero:
-  1. build the CUDA propagation kernel from csrc/prop_step.cu (sm_90a);
-  2. hold the kernel against its plain PyTorch twin at MC3 and SHARAD step
+  1. build both CUDA propagation kernels, csrc/prop_step.cu and
+     csrc/prop_seq.cu (sm_90a, one nvcc each, started together);
+  2. hold prop_step against its plain PyTorch twin at MC3 and SHARAD step
      shapes, a tie-heavy case, a valid prefix nslots < K, knn above the
      candidate count, an odd channel count and the global-scratch path:
      pred to 1e-4 absolute, argmax exactly equal;
@@ -16,7 +17,27 @@ Phases, one line each, any failure exits non-zero:
   4. times on the card: encode, propagate, seed->map and reseed wall ms,
      the kernel per launch and per seed->map, the plain step, and one
      torch.matmul of the same affinity product as a yardstick;
-  5. a JSON line describing each kernel, the card's name and power limit,
+  5. hold prop_seq against its plain twin (the batched frame loop) at the
+     Miguel survey shape (B = 63, T = 100, N = 50), at MC3 width (N = 190),
+     on a wrapping ring with pins, with knn above the candidate count, on
+     tie-heavy dyadic values, and at T = 1 (no launch): soft to 1e-4
+     absolute, argmax exactly equal; then cuda_seq (B = 1) against the
+     per-frame cuda path on the MC3 window: >= 99.5 % equal maps;
+  6. the Miguel survey at full width, as `scripts/test_all.py --batched
+     --correction --correction_tail --use_last` runs it: 63 windows of
+     T = 100 frames, N = 50, of the synthetic 410 x 105120 line; forward
+     with change detection, the correction tails bucketed by length, the
+     reverse pass and the flat MCORDS3 merge. On every pass the
+     whole-sequence kernel route against the plain route: >= 99.5 % equal
+     maps, equal change indices; the device-gathered survey equal to
+     propagate_batch on host-staged windows; prop_seq launched once per
+     survey call and once per correction bucket;
+  7. survey times: wall ms and radargrams/s (median of 5), the encode of
+     the 315,000 patches, prop_seq per launch against its bound, the plain
+     and the per-frame-kernel survey propagation, a batched torch.bmm of
+     the saturated affinity product as a yardstick, and the device's busy
+     time by kernel over one survey call (torch.profiler);
+  8. a JSON line describing each kernel, the card's name and power limit,
      and the final {"ok": true, ...} line.
 """
 
@@ -99,6 +120,226 @@ def step_flops_bytes(K, N, C, M, knn, nslots):
     return ops, nbytes
 
 
+def seq_flops_bytes(B, T, N, C, M, knn, L, cxt):
+    """float32 operations and bytes of one whole-sequence launch: the step
+    count of `step_flops_bytes` summed over every radargram's frames, each
+    over its valid prefix ns = L + min(t, cxt); bytes are the embeddings,
+    seeds and mask read once and the soft labels written once."""
+    ops = B * sum(step_flops_bytes(L + cxt, N, C, M, knn, L + min(t, cxt))[0]
+                  for t in range(1, T))
+    nbytes = 4 * (B * T * N * C + B * N * M + N * N + B * T * N * M)
+    return ops, nbytes
+
+
+def bound(ops, nbytes):
+    """(ms, what bounds it) at the card's float32 and memory peaks."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def seq_inputs(B, T, N, C, M, seed, ties=False):
+    """Embeddings on a 2**-5 grid (dyadic halves with ties=True): every dot
+    product is exact in any summation order, so the kernel and the twin
+    select the same winners frame after frame; seeds are random soft labels."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        emb = rng.integers(-2, 3, (B, T, N, C)).astype(np.float32) / 2
+    else:
+        emb = rng.standard_normal((B, T, N, C)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+        emb = np.round(emb * 32) / 32
+    seeds = rng.random((B, N, M)).astype(np.float32)
+    return torch.as_tensor(emb, device="cuda"), torch.as_tensor(seeds, device="cuda")
+
+
+def device_busy(fn):
+    """Device time by kernel name over one call of fn under torch.profiler:
+    the device's busy share of the call's wall time and the largest kernels
+    (ms). A trace without device time reports a busy share of 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():  # the kernels themselves, not the ops that launch them
+        us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((us, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(us for us, _ in rows)
+    phase("profile", f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall; top: "
+          + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for us, name in rows[:8]))
+    return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us}
+
+
+def survey_phase(smi):
+    """Phases 6 and 7: the full-width Miguel survey through the product
+    entry point, on the whole-sequence kernel and on the plain route.
+    Returns (prop_seq launches on the survey's main path, what bounds
+    prop_seq, times)."""
+    from radar_sounder_crw_tpu_torch.data import create_dataset, get_reference
+    from radar_sounder_crw_tpu_torch.infer import (
+        PropagationPipeline,
+        correction_pixel_offset,
+        integrate_flat_mcords3,
+        reverse_unfold_flip,
+        splice_correction,
+    )
+    from radar_sounder_crw_tpu_torch.models import create_model
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+    from radar_sounder_crw_tpu_torch.ops.labelprop import (
+        LabelPropConfig,
+        propagate_labels_batched,
+        propagate_seq_reference,
+        radius_mask,
+    )
+
+    T, patch, overlap = 100, (16, 16), (8, 0)
+    t0 = time.perf_counter()
+    ds = create_dataset(id=1, length=T, dim=patch, overlap=overlap, full=True)
+    geo = ds.geo
+    N = geo.nh
+    nclasses, seg = get_reference(id=1, h=N * patch[0], w=0, length=T, dim=patch)
+    rg_len, rg_h = geo.rg_len(), geo.rg_h()
+    R = seg.shape[-1] // rg_len
+    seg = seg[:, : R * rg_len]
+    ids = list(range(0, len(ds), T))[:R]
+    refs = [seg[:rg_h, rg_len * t : rg_len * t + patch[1]] for t in range(R)]
+    if (R, N, len(ids)) != (63, 50, 63):
+        raise SystemExit(f"survey geometry R={R} N={N} windows={len(ids)}, expected 63/50/63")
+    phase("survey", f"Miguel line {ds.rg.shape} -> {R} windows of T={T}, N={N} "
+          f"(set-up {time.perf_counter() - t0:.1f} s)")
+    cfg = LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=20)
+    model = create_model(1, False, device="cuda", seed=0)
+    pipe = PropagationPipeline(model, cfg, nclasses, cache_embeddings=False)
+    plain = PropagationPipeline(model, cfg, nclasses, kernel="torch", cache_embeddings=False)
+    per_frame = PropagationPipeline(model, cfg, nclasses, kernel="cuda", cache_embeddings=False)
+    pipe.propagate_survey(ds, ids[:2], refs[:2])  # warm-up: upload, cuDNN choice
+    torch.cuda.synchronize()
+
+    def to_px(pred):
+        return pipe.prediction_to_pixels(pred, (seg.shape[0], rg_len))
+
+    def check(name, got, want, ch_got=None, ch_want=None):
+        agree = float((got == want).mean())
+        ok = agree >= MAP_AGREEMENT and ch_got == ch_want and got.shape == want.shape
+        phase("survey", f"{name}: cuda_seq vs plain map agreement={agree:.5f}"
+              + ("" if ch_got is None else f", change indices equal={ch_got == ch_want}"))
+        if not ok:
+            raise SystemExit(f"survey pass {name}: cuda_seq disagrees with the plain route")
+
+    # the main path: forward, correction buckets, reverse --------------------
+    labelprop_cuda.launches["prop_seq"] = 0
+    labelprop_cuda.launches["prop_step"] = 0
+    preds, change = pipe.propagate_survey(ds, ids, refs, detect_change=True)
+    tasks = []
+    for t, ci in enumerate(change):
+        if ci is None or ci >= T - 1:
+            continue
+        small = T - ci
+        off = correction_pixel_offset(small, patch[1], overlap[1])
+        c0 = rg_len * t + rg_len - off
+        tasks.append((t, off, small, ci, seg[:, c0 : c0 + patch[1]]))
+    buckets: dict[int, list] = {}
+    for task in tasks:
+        buckets.setdefault(task[2], []).append(task)
+    corrected = {}
+    for small, group in sorted(buckets.items()):
+        corrected[small] = pipe.propagate_survey(
+            ds, [ids[g[0]] for g in group], [g[4] for g in group], length=small,
+            frame_offsets=[g[3] for g in group])
+    seg_rev = reverse_unfold_flip(seg, rg_len)
+    rev_refs = [seg_rev[:, rg_len * t : rg_len * t + patch[1]] for t in range(R)]
+    rev_preds = pipe.propagate_survey(ds, ids, rev_refs, use_last=True)
+    torch.cuda.synchronize()
+    launches = labelprop_cuda.launches["prop_seq"]
+    want_launches = 2 + len(buckets)
+    phase("survey", f"main path: prop_seq launches={launches} (expected {want_launches}: "
+          f"forward, {len(buckets)} correction buckets of {len(tasks)} tails, reverse), "
+          f"prop_step launches={labelprop_cuda.launches['prop_step']}")
+    if launches != want_launches:
+        raise SystemExit("the survey did not launch prop_seq once per survey call")
+
+    seg_list = [to_px(p) for p in preds]
+    for small, group in buckets.items():
+        for (t, off, _, _, _), pred in zip(group, corrected[small]):
+            seg_list[t] = splice_correction(seg_list[t], pred, off)
+    final = np.concatenate(seg_list, axis=1).ravel()
+    rev_map = reverse_unfold_flip(np.concatenate([to_px(p) for p in rev_preds], axis=1), rg_len)
+    final = integrate_flat_mcords3(final, rev_map)
+    acc = float((final == seg.ravel()).mean())
+
+    # the same passes on the plain route ------------------------------------
+    ref_preds, ref_change = plain.propagate_survey(ds, ids, refs, detect_change=True)
+    check("forward", preds, ref_preds, change, ref_change)
+    for small, group in sorted(buckets.items()):
+        want = plain.propagate_survey(
+            ds, [ids[g[0]] for g in group], [g[4] for g in group], length=small,
+            frame_offsets=[g[3] for g in group])
+        check(f"correction T'={small} ({len(group)} tails)", corrected[small], want)
+    check("reverse", rev_preds, plain.propagate_survey(ds, ids, rev_refs, use_last=True))
+    staged = pipe.propagate_batch(np.stack([ds[i] for i in ids]), refs)
+    checks = {
+        "prediction shape": preds.shape == (R, N, T),
+        "device gather == host-staged": np.array_equal(staged, preds),
+        "merged map shape": final.shape == (seg.size,),
+        "classes in range": 0 <= final.min() and final.max() < nclasses,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"survey checks failed: {failed}")
+    phase("survey", "ok: " + ", ".join(checks)
+          + f"; merged map accuracy vs ground truth {acc:.4f} (random weights)")
+
+    # 7. times ------------------------------------------------------------------
+    seqs = torch.as_tensor(np.stack([ds[i] for i in ids]), device="cuda")
+    seeds = torch.nn.functional.one_hot(
+        torch.as_tensor(pipe._stack_seed_labels(refs, N), device="cuda").long(), nclasses).float()
+    torch.cuda.reset_peak_memory_stats()
+    emb = pipe.encode(seqs.reshape(R * T, N, *patch)).reshape(R, T, N, -1)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mask = torch.as_tensor(radius_mask(N, 1, cfg.radius), device="cuda")
+    knn, C = cfg.knn, emb.shape[-1]
+    args = (emb, seeds, mask, (0,), cfg.cxt_size, cfg.temperature, knn)
+    kernel_ms = cuda_ms(lambda: labelprop_cuda.prop_seq(*args), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: propagate_seq_reference(*args), iters=2, warmup=1)
+    K = 1 + cfg.cxt_size
+    fk = torch.randn((R, K * N, C), device="cuda")
+    bmm_ms = cuda_ms(lambda: torch.bmm(fk, emb[:, 1].transpose(1, 2)), iters=50)
+    ops, nbytes = seq_flops_bytes(R, T, N, C, nclasses, knn, 1, cfg.cxt_size)
+    bound_ms, bound_by = bound(ops, nbytes)
+    times = {
+        "survey_ms": wall_ms(lambda: pipe.propagate_survey(ds, ids, refs)),
+        "encode_ms": wall_ms(lambda: pipe.encode(seqs.reshape(R * T, N, *patch))),
+        "prop_seq_ms_per_launch": kernel_ms,
+        "prop_seq_bound_ms": bound_ms,
+        "plain_propagation_ms": wall_ms(
+            lambda: propagate_labels_batched(emb, seeds, cfg, kernel="torch"), reps=3),
+        "cuda_per_frame_propagation_ms": wall_ms(
+            lambda: propagate_labels_batched(emb, seeds, cfg, kernel="cuda"), reps=3),
+        "cuda_seq_propagation_ms": wall_ms(
+            lambda: propagate_labels_batched(emb, seeds, cfg, kernel="cuda_seq")),
+        "plain_twin_ms": plain_ms,
+        "affinity_bmm_ms": bmm_ms,
+        "survey_per_frame_kernel_ms": wall_ms(
+            lambda: per_frame.propagate_survey(ds, ids, refs), reps=3),
+        "survey_plain_ms": wall_ms(lambda: plain.propagate_survey(ds, ids, refs), reps=3),
+    }
+    times["survey_rg_per_s"] = R / (times["survey_ms"] / 1e3)
+    times.update(device_busy(lambda: pipe.propagate_survey(ds, ids, refs)))
+    phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+          + f" | prop_seq GFLOP={ops / 1e9:.2f} MB={nbytes / 1e6:.1f} bound by {bound_by}"
+          + f" | encode peak memory {peak_gb:.2f} GB")
+    return launches, bound_by, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -130,8 +371,9 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = labelprop_cuda.build(verbose=True)
-    phase("build", f"ok {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    libs = labelprop_cuda.build(verbose=True)
+    phase("build", f"ok {sorted(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 2. kernel vs plain at step shapes ---------------------------------------
     cases = [
@@ -235,8 +477,7 @@ def main() -> int:
     f2d = feats.reshape(K * N, C)
     matmul_ms = cuda_ms(lambda: torch.matmul(f2d, query.T), iters=50)
     ops, nbytes = step_flops_bytes(K, N, C, M, knn, K)
-    bound_ms = max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    bound_ms, bound_by = bound(ops, nbytes)
 
     # the kernel's share of one seed->map: the 99 launches of the main path,
     # each over its valid prefix of 1 + min(t, 100) slots
@@ -260,7 +501,50 @@ def main() -> int:
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in times.items())
           + f" | path GFLOP={path_ops / 1e9:.2f}")
 
-    # 5. results ----------------------------------------------------------------
+    # 5. prop_seq vs its plain twin ------------------------------------------
+    from radar_sounder_crw_tpu_torch.ops.labelprop import propagate_seq_reference, radius_mask
+
+    seq_cases = [
+        # name, B, T, N, C, M, cxt, radius, temperature, knn, long_mem, ties
+        ("survey", 63, 100, 50, 128, 6, 100, 10, 0.1, 20, (0,), False),
+        ("mc3_width", 2, 100, 190, 128, 6, 100, 60, 0.01, 20, (0,), False),
+        ("wrap_pins", 3, 12, 24, 32, 4, 4, 5, 0.07, 6, (0, 2), False),
+        ("knn_over_candidates", 2, 6, 5, 8, 3, 2, 3, 0.07, 40, (0,), False),
+        ("ties", 4, 30, 50, 128, 6, 10, 10, 0.1, 20, (0, 3), True),
+        ("single_frame", 2, 1, 50, 128, 6, 100, 10, 0.1, 20, (0,), False),
+    ]
+    seq_err = 0.0
+    for i, (name, B, Ts, Ns, Cs, Ms, cxt, radius, temp, knn_s, lm, ties) in enumerate(seq_cases):
+        e, s0 = seq_inputs(B, Ts, Ns, Cs, Ms, 100 + i, ties)
+        m = torch.as_tensor(radius_mask(Ns, 1, radius), device="cuda")
+        knn_s = min(knn_s, (len(lm) + cxt) * Ns)
+        before = labelprop_cuda.launches["prop_seq"]
+        got = labelprop_cuda.prop_seq(e, s0, m, lm, cxt, temp, knn_s)
+        n_launch = labelprop_cuda.launches["prop_seq"] - before
+        want = propagate_seq_reference(e, s0, m, lm, cxt, temp, knn_s)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        same_argmax = torch.equal(got.argmax(-1), want.argmax(-1))
+        phase("seq_vs_plain", f"{name} B={B} T={Ts} N={Ns} C={Cs} M={Ms} cxt={cxt} "
+              f"knn={knn_s} long_mem={lm}: max_abs_err={err:.3e} argmax_equal={same_argmax} "
+              f"bitwise={torch.equal(got, want)} launches={n_launch}")
+        if not (torch.isfinite(got).all() and err <= STEP_ATOL and same_argmax
+                and n_launch == (1 if Ts > 1 else 0)):
+            raise SystemExit(f"prop_seq disagrees with its plain twin on {name}")
+        if name == "survey":
+            seq_err = err
+    soft_seq, pred_seq = propagate_labels(emb, seed_np, cfg, kernel="cuda_seq")
+    soft_frame, pred_frame = propagate_labels(emb, seed_np, cfg, kernel="cuda")
+    agree_seq = float((pred_seq == pred_frame).float().mean())
+    phase("seq_vs_plain", f"MC3 window, cuda_seq (B=1) vs cuda: map agreement={agree_seq:.5f}, "
+          f"max |soft diff|={(soft_seq - soft_frame).abs().max().item():.3e}")
+    if agree_seq < MAP_AGREEMENT:
+        raise SystemExit("cuda_seq disagrees with the per-frame cuda path on the MC3 window")
+
+    # 6-7. the Miguel survey at full width ---------------------------------------
+    seq_launches, seq_bound_by, survey_times = survey_phase(smi)
+
+    # 8. results ----------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "prop_step",
@@ -275,7 +559,20 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "affinity_matmul_ms": matmul_ms,
-    }], "times": times}))
+    }, {
+        "name": "prop_seq",
+        "route": "cuda",
+        "source": "radar_sounder_crw_tpu_torch/csrc/prop_seq.cu",
+        "replaces": "radar_sounder_crw_tpu/ops/labelprop_pallas.py:939",
+        "launches": seq_launches,
+        "max_abs_err": seq_err,
+        "ms": survey_times["prop_seq_ms_per_launch"],
+        "plain_ms": survey_times["plain_twin_ms"],
+        "bound_ms": survey_times["prop_seq_bound_ms"],
+        "bound_by": seq_bound_by,
+        "library_ms": None,
+        "affinity_bmm_ms": survey_times["affinity_bmm_ms"],
+    }], "times": times, "survey_times": survey_times}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0

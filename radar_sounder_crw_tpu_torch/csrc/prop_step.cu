@@ -12,7 +12,8 @@
 //   winners = the knn largest aff, lowest r first on ties, by read-only
 //             passes under the lexicographic threshold
 //             (a < v_last) | (a == v_last & r > i_last);
-//   pred[n] = sum_j softmax(v)_j * labels[winner_j], in winner order.
+//   pred[n] = sum_j e_j * labels[winner_j] / sum_j e_j, e_j = exp(v_j - v_0),
+//             accumulated in winner order (prop_common.cuh).
 //
 // Design (simple first): one CTA per query node. The CTA keeps its affinity
 // column (nslots*N floats, ~77 KB at MC3) in dynamic shared memory, or in a
@@ -32,22 +33,18 @@
 // Plain C interface, loaded with ctypes (radar_sounder_crw_tpu_torch/ops/
 // labelprop_cuda.py).
 
-#include <cuda_runtime.h>
-#include <climits>
-#include <cmath>
 #include <cstdint>
 
+#include "prop_common.cuh"
+
 namespace {
+
+using prop::kFull;
+using prop::lex_better;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;  // candidate rows a warp reads at once
-constexpr int kMaxKnn = 1024;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ bool lex_better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
 
 __global__ void __launch_bounds__(kThreads)
 prop_step_kernel(const float* __restrict__ feats,      // (nslots*N, C)
@@ -59,8 +56,6 @@ prop_step_kernel(const float* __restrict__ feats,      // (nslots*N, C)
                  float* __restrict__ gscratch,         // (N, nslots*N) or null
                  int N, int C, int M, float temperature, int knn, int nslots) {
   extern __shared__ float4 smem4[];
-  __shared__ float win_v[kMaxKnn];
-  __shared__ int win_i[kMaxKnn];
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
 
@@ -126,29 +121,22 @@ prop_step_kernel(const float* __restrict__ feats,      // (nslots*N, C)
   }
   __syncthreads();
 
-  // 2. knn read-only extraction passes; the lowest row wins ties
+  // 2. knn read-only extraction passes, the lowest row winning ties; each
+  // winner's weighted label goes straight into the sum (thread m: class m)
   float v_last = INFINITY;
   int i_last = -1;
-  int found = 0;
+  float v1 = 0.f, num = 0.f, den = 0.f;
   for (int k = 0; k < knn; ++k) {
     float bv = -INFINITY;
     int bi = INT_MAX;
     for (int r = threadIdx.x; r < ncand; r += kThreads) {
       const float a = col[r];
-      const bool eligible = (a < v_last) || (a == v_last && r > i_last);
-      if (eligible && lex_better(a, r, bv, bi)) {
+      if (prop::after(a, r, v_last, i_last) && lex_better(a, r, bv, bi)) {
         bv = a;
         bi = r;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (lex_better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
+    prop::warp_best(bv, bi);
     if (lane == 0) {
       red_v[warp] = bv;
       red_i[warp] = bi;
@@ -164,28 +152,18 @@ prop_step_kernel(const float* __restrict__ feats,      // (nslots*N, C)
     }
     __syncthreads();  // red_* is rewritten by the next pass
     if (bi == INT_MAX) break;  // knn exceeds the candidate count (uniform)
-    if (threadIdx.x == 0) {
-      win_v[k] = bv;
-      win_i[k] = bi;
+    if (k == 0) v1 = bv;
+    const float e = expf(bv - v1);
+    den += e;
+    if (threadIdx.x < M) {
+      num = prop::add_weighted(num, e, labels[static_cast<size_t>(bi) * M + threadIdx.x]);
     }
     v_last = bv;
     i_last = bi;
-    found = k + 1;
   }
-  __syncthreads();
 
-  // 3. softmax over the winners and the weighted label sum, in winner order
-  const float v1 = win_v[0];
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    float denom = 0.f;
-    for (int j = 0; j < found; ++j) denom += expf(win_v[j] - v1);
-    float acc = 0.f;
-    for (int j = 0; j < found; ++j) {
-      const float w = expf(win_v[j] - v1) / denom;
-      acc = fmaf(w, labels[static_cast<size_t>(win_i[j]) * M + m], acc);
-    }
-    pred[static_cast<size_t>(n) * M + m] = acc;
-  }
+  // 3. the softmax-weighted label sum
+  if (threadIdx.x < M) pred[static_cast<size_t>(n) * M + threadIdx.x] = num / den;
 }
 
 }  // namespace
@@ -206,7 +184,7 @@ int prop_step_max_dynamic_smem(void) {
   return optin - static_cast<int>(attr.sharedSizeBytes);
 }
 
-int prop_step_max_knn(void) { return kMaxKnn; }
+int prop_step_max_classes(void) { return prop::kMaxClasses; }
 
 const char* prop_step_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -53,6 +53,10 @@ class GridGeometry:
         """Used height in pixels."""
         return self.nh * self.h - self.oh * (self.nh - 1)
 
+    @property
+    def num_items(self) -> int:
+        return self.nw
+
     def col_start(self, index: int) -> int:
         """First pixel column of window `index`."""
         return (self.w - self.ow) * index
@@ -61,6 +65,13 @@ class GridGeometry:
         """Pixel width of a window of `length` frames (default self.length)."""
         length = self.length if length is None else length
         return length * self.w - self.ow * (length - 1)
+
+    def num_windows(self, length: int | None = None, W: int | None = None) -> int:
+        """Valid window start positions for `length` frames over a trace
+        axis of `W` pixels (defaults self.length, self.W: then equal to nw).
+        Shorter correction windows are bounds-checked against this."""
+        W = self.W if W is None else W
+        return (W - self.item_width(length)) // (self.w - self.ow) + 1
 
     def rg_len(self) -> int:
         """Rendered pixel length of one item: T*(w-ow)+ow."""

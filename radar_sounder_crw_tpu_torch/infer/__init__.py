@@ -1,3 +1,5 @@
+from .correction import correction_pixel_offset, splice_correction
+from .integrate import integrate_bidirectional, integrate_flat_mcords3, reverse_unfold_flip
 from .propagate import (
     PropagateResult,
     PropagationPipeline,
@@ -8,6 +10,11 @@ from .propagate import (
 __all__ = [
     "PropagateResult",
     "PropagationPipeline",
+    "correction_pixel_offset",
     "encode_sequence",
+    "integrate_bidirectional",
+    "integrate_flat_mcords3",
+    "reverse_unfold_flip",
     "seed_onehot_from_segmentation",
+    "splice_correction",
 ]

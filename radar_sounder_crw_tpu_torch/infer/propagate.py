@@ -8,10 +8,13 @@
   6. frame-by-frame top-k label propagation over the ring buffer,
 returning (prediction (N, T), xent (N, T-1), change_idx).
 
-Follows radar_sounder_crw_tpu/infer/propagate.py (`PropagationPipeline`,
-single-radargram path and interactive `reseed`). Steps 2, 3 and 6 run on the
-pipeline's device; 6 launches the CUDA propagation kernel once per frame
-when that device is a GPU.
+Follows radar_sounder_crw_tpu/infer/propagate.py (`PropagationPipeline`):
+the single-radargram path, interactive `reseed`, and full-survey inference
+over many radargrams (`propagate_batch` on host-staged windows,
+`propagate_survey` on windows gathered on the device from a once-uploaded
+radargram). Steps 2, 3 and 6 run on the pipeline's device. On a GPU, 6
+launches the per-frame CUDA kernel once per frame for one radargram, and
+the whole-sequence CUDA kernel once per survey pass.
 
 `bn_train_mode=True` normalizes with batch statistics, as the upstream test
 scripts that never leave train mode do; the running statistics are left
@@ -27,7 +30,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.labelprop import LabelPropConfig, propagate_labels, resolve_kernel
+from ..ops.labelprop import (
+    LabelPropConfig,
+    propagate_labels,
+    propagate_labels_batched,
+    resolve_kernel,
+)
 from ..ops.pelt import detect_change_point
 from ..ops.xent_metric import column_diffs, horizontality_xent
 from ..utils.device import resolve_device
@@ -87,9 +95,11 @@ def seed_onehot_from_segmentation(seg_ref: np.ndarray, n_nodes: int, nclasses: i
 class PropagationPipeline:
     """An encoder + label-propagation config as a callable seed->map pipeline.
 
-    kernel: 'auto' (the CUDA kernel on a GPU, the plain step on the CPU),
-    'cuda' or 'torch' (see ops/labelprop.propagate_labels). device: default
-    cuda; raises when CUDA is absent, so a CPU run must say device='cpu'."""
+    kernel: 'auto' (on a GPU the per-frame CUDA kernel for one radargram
+    and the whole-sequence kernel for a survey; the plain path on the CPU),
+    'torch', 'cuda' or 'cuda_seq' (see ops/labelprop.propagate_labels).
+    device: default cuda; raises when CUDA is absent, so a CPU run must say
+    device='cpu'."""
 
     def __init__(
         self,
@@ -106,7 +116,8 @@ class PropagationPipeline:
         device=None,
     ):
         self.device = resolve_device(device)
-        self.kernel = resolve_kernel(kernel, self.device)
+        resolve_kernel(kernel, self.device)  # refuses unknown or misplaced kernels
+        self.kernel = kernel
         self.model = model.to(self.device).eval()
         self.lp_cfg = lp_cfg
         self.nclasses = nclasses
@@ -234,3 +245,211 @@ class PropagationPipeline:
     def prediction_to_pixels(self, prediction: np.ndarray, out_hw: tuple[int, int]):
         """Upsample the (N, T) patch-grid map to pixels (nearest)."""
         return resize_nearest(prediction.astype(np.int32), out_hw)
+
+    @torch.no_grad()
+    def _batched_body(self, seqs: torch.Tensor, seeds: torch.Tensor, compute_xent: bool,
+                      return_xent: bool):
+        """Encode + propagate (+ the change-point signal, + the xent maps)
+        over the radargram axis R of seqs (R, T, N, h, w) on the device.
+
+        At eval the encoder runs as ONE flat (R*T)-frame forward: running
+        BatchNorm statistics and the per-embedding L2 make the radargram
+        axis inert. Under bn_train_mode each radargram is encoded alone, so
+        batch statistics never mix across radargrams, as in the sequential
+        path. Compact (R, N) int seeds become a one-hot here."""
+        if seeds.dim() == 2:
+            seeds = torch.nn.functional.one_hot(seeds.long(), self.nclasses).float()
+        R, T, N = seqs.shape[:3]
+        if self.bn_train_mode:
+            embs = torch.stack([
+                encode_sequence(self.model, s, self.use_pos_embed, True) for s in seqs
+            ])
+        else:
+            flat = seqs.reshape(R * T, N, *seqs.shape[3:])
+            embs = encode_sequence(self.model, flat, self.use_pos_embed, False)
+            embs = embs.reshape(R, T, N, -1)
+        # 'auto' is the whole-sequence kernel here, one launch per pass
+        _, pred = propagate_labels_batched(
+            embs, seeds, self.lp_cfg, None, self.kernel, device=self.device
+        )
+        if seeds.shape[-1] <= 127:
+            pred = pred.to(torch.int8)  # the class map fetch is the largest
+        xents = None
+        if compute_xent or return_xent:
+            xents = horizontality_xent(embs, self.xent_tau, quirk_channel_shift=self.xent_quirk)
+        sigs = column_diffs(xents) if compute_xent else None
+        return pred, sigs, (xents if return_xent else None)
+
+    def propagate_batch(
+        self, seqs, seg_refs, use_last: bool = False, detect_change: bool = False,
+        return_xent: bool = False,
+    ):
+        """Full-survey inference on host-staged windows: seqs (R, T, N, h, w)
+        (host array or tensor), seg_refs: R seed segmentation patches.
+
+        Returns (R, N, T) int32 predictions; with detect_change=True a tuple
+        (predictions, change indices), the change detection running on the
+        batched xent signal (device) and per-radargram PELT (host); with
+        return_xent=True the (R, N, T-1) xent maps are appended last."""
+        seqs = torch.as_tensor(seqs, dtype=torch.float32, device=self.device)
+        if use_last:
+            seqs = seqs.flip(1)
+        R, T, N = seqs.shape[:3]
+        seeds = torch.as_tensor(self._stack_seed_labels(seg_refs, N), device=self.device)
+        pred, sigs, xents = self._batched_body(
+            seqs, seeds, compute_xent=detect_change and T >= 4, return_xent=return_xent
+        )
+        return self._fetch_batched(pred, sigs, xents, R, detect_change, return_xent)
+
+    def _fetch_batched(self, pred, sigs, xents, real, detect_change, return_xent):
+        """The host tail of the batched paths: fetch, keep the first `real`
+        radargrams, per-radargram PELT on the batched signal."""
+        preds = pred[:real].permute(0, 2, 1).to(torch.int32).cpu().numpy()  # (R, N, T)
+        result = (preds,)
+        if detect_change:
+            if sigs is not None:
+                sig_host = sigs[:real].cpu().numpy()
+                change = [detect_change_point(s, pen=self.pelt_pen) for s in sig_host]
+            else:
+                change = [None] * real
+            result += (change,)
+        if return_xent:
+            result += (xents[:real].cpu().numpy() if xents is not None else None,)
+        return result if len(result) > 1 else preds
+
+    def propagate_survey(
+        self, source, window_ids, seg_refs, *, length: int | None = None,
+        frame_offsets=None, use_last: bool = False, detect_change: bool = False,
+        return_xent: bool = False,
+    ):
+        """Full-survey inference with windows gathered on the device: exactly
+        `propagate_survey_device` plus the one host fetch. Returns what
+        `propagate_batch` returns for the same windows, value for value."""
+        pred, sigs, xents, real = self.propagate_survey_device(
+            source, window_ids, seg_refs, length=length, frame_offsets=frame_offsets,
+            use_last=use_last, detect_change=detect_change, return_xent=return_xent,
+        )
+        return self._fetch_batched(pred, sigs, xents, real, detect_change, return_xent)
+
+    def propagate_survey_device(
+        self, source, window_ids, seg_refs, *, length: int | None = None,
+        frame_offsets=None, use_last: bool = False, detect_change: bool = False,
+        return_xent: bool = False,
+    ):
+        """The device work of `propagate_survey` without the host fetch:
+        returns ((B, T', N) device class map, change signals or None, xent
+        maps or None, real = B).
+
+        The radargram(s) behind `source` are uploaded once (memoized on this
+        pipeline) and every pass (forward, reverse, correction) gathers its
+        windows on the device from that copy; per call only the window ids
+        and the seeds cross to the device.
+
+        source: RGWindows, ConcatWindows or SubsetWindows
+          (`data.device_windows.resident_source`).
+        window_ids: (B,) dataset indices, the space of `source[i]`.
+        length: window length (correction buckets; default source.geo.length).
+        frame_offsets: optional (B,) frame shifts applied after the index
+          mapping: window i shifted by k frames starts at frame k of window
+          i (frames and windows share the (w - ow) column stride), which is
+          how the correction tails dataset[i][change_idx:] are gathered.
+        use_last / detect_change / return_xent: as in propagate_batch."""
+        from ..data.device_windows import gather_windows, resident_source
+
+        rs = resident_source(source)
+        if rs is None:
+            raise TypeError(
+                f"propagate_survey needs a resident-gatherable dataset "
+                f"(RGWindows / ConcatWindows / SubsetWindows), got "
+                f"{type(source).__name__}"
+            )
+        rg_host, geo, index_map = rs
+        T = geo.length if length is None else int(length)
+
+        ids = np.asarray(window_ids, dtype=np.int64)
+        if ids.ndim != 1:
+            raise ValueError(f"window_ids must be (B,), got shape {ids.shape}")
+        if ids.size and (ids.min() < 0 or ids.max() >= len(index_map)):
+            raise IndexError(f"dataset index out of range [0, {len(index_map)}) in {ids!r}")
+        gather_ids = index_map[ids]  # (B,) or (B, 2) for stacked sources
+        if frame_offsets is not None:
+            off = np.asarray(frame_offsets, dtype=np.int64)
+            if off.shape != (ids.shape[0],):
+                raise ValueError(
+                    f"frame_offsets must match window_ids shape {ids.shape}, got {off.shape}"
+                )
+            gather_ids = gather_ids.astype(np.int64)
+            if gather_ids.ndim == 2:
+                gather_ids[:, 1] += off
+            else:
+                gather_ids += off
+        # bounds for THIS length while the ids are on the host; a stacked
+        # source checks each pair against its own segment's width (the stack
+        # is padded to the widest, which would admit windows that overrun a
+        # narrower segment into zeros)
+        win_col = gather_ids[:, 1] if gather_ids.ndim == 2 else gather_ids
+        if gather_ids.ndim == 2 and gather_ids.shape[0] > 0:
+            inner = getattr(source, "dataset", source)
+            segments = getattr(inner, "datasets", None)
+            if segments is None:
+                raise TypeError(
+                    f"propagate_survey: stacked source {type(inner).__name__} exposes no "
+                    f"per-segment datasets, so window bounds cannot be validated against "
+                    f"true segment widths"
+                )
+            widths = [d.rg.shape[1] for d in segments]
+            nw_seg = np.array([geo.num_windows(T, W=int(w)) for w in widths])
+            bad = (win_col < 0) | (win_col >= nw_seg[gather_ids[:, 0]])
+            if bad.any():
+                k = int(np.argmax(bad))
+                raise IndexError(
+                    f"gather window {int(win_col[k])} out of range "
+                    f"[0, {int(nw_seg[gather_ids[k, 0]])}) for length={T} in segment "
+                    f"{int(gather_ids[k, 0])}"
+                )
+        else:
+            nw_t = geo.num_windows(T, W=rg_host.shape[-1])
+            if win_col.size and (win_col.min() < 0 or win_col.max() >= nw_t):
+                raise IndexError(
+                    f"gather window index out of range [0, {nw_t}) for length={T} in "
+                    f"{win_col!r}"
+                )
+
+        rg_dev = self._resident_radargram(rg_host)
+        seeds = torch.as_tensor(self._stack_seed_labels(seg_refs, geo.nh), device=self.device)
+        seqs = gather_windows(rg_dev, gather_ids, geo, T)
+        if use_last:
+            seqs = seqs.flip(1)
+        pred, sigs, xents = self._batched_body(
+            seqs, seeds, compute_xent=detect_change and T >= 4, return_xent=return_xent
+        )
+        return pred, sigs, xents, len(ids)
+
+    def _stack_seed_labels(self, seg_refs, n_nodes: int) -> np.ndarray:
+        """(R, N) compact int seed labels for the batched paths; the one-hot
+        is rebuilt on the device. np.eye (the single-radargram path) takes
+        labels in [-M, M) with negatives wrapping, so negatives wrap here too
+        and anything np.eye would refuse raises IndexError."""
+        labels = np.stack(
+            [seed_onehot_from_segmentation(sr, n_nodes, self.nclasses)[1] for sr in seg_refs]
+        )
+        C = self.nclasses
+        if labels.size and (labels.min() < -C or labels.max() >= C):
+            raise IndexError(
+                f"seed labels must lie in [-{C}, {C}) (np.eye semantics); "
+                f"got range [{labels.min()}, {labels.max()}]"
+            )
+        labels = np.where(labels < 0, labels + C, labels)
+        return labels.astype(np.int8 if C <= 127 else np.int32)
+
+    def _resident_radargram(self, rg_host: np.ndarray) -> torch.Tensor:
+        """Upload `rg_host` once and reuse it across passes (forward,
+        reverse, every correction bucket). The memo holds the host array
+        itself and compares by identity: an id() key could alias a
+        collected array's recycled address."""
+        memo = getattr(self, "_rg_memo", None)
+        if memo is not None and memo[0] is rg_host:
+            return memo[1]
+        rg_dev = torch.as_tensor(rg_host, dtype=torch.float32, device=self.device)
+        self._rg_memo = (rg_host, rg_dev)
+        return rg_dev

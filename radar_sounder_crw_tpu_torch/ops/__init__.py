@@ -3,6 +3,7 @@ from .labelprop import (
     NEG_MASKED,
     LabelPropConfig,
     propagate_labels,
+    propagate_labels_batched,
     radius_mask,
 )
 from .pelt import detect_change_point, pelt_rbf, rbf_gram, rbf_segment_cost
@@ -17,6 +18,7 @@ __all__ = [
     "horizontality_xent",
     "pelt_rbf",
     "propagate_labels",
+    "propagate_labels_batched",
     "radius_mask",
     "rbf_gram",
     "rbf_segment_cost",

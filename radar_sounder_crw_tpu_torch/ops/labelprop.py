@@ -13,14 +13,20 @@ source nodes held in a ring buffer:
     temperature, then the exact top-knn per query (lowest candidate index on
     ties), a softmax over the winners and the weighted sum of their labels.
 
-The semantics are those of radar_sounder_crw_tpu/ops/labelprop.py. The frame
-loop runs in Python, one step launch per frame; the ring lives on the device
-and is updated in place. The step runs either as the plain PyTorch `_prop_step`
-below (kernel="torch", the CPU path and the twin the CUDA kernel is held
-against) or as the hand-written CUDA kernel (kernel="cuda",
-ops/labelprop_cuda.py).
+The semantics are those of radar_sounder_crw_tpu/ops/labelprop.py. Three
+routes compute them for a batch of radargrams (`propagate_labels_batched`;
+`propagate_labels` is its B = 1 view):
 
-Both walk only the valid slot PREFIX L + min(t, cxt): the slots beyond it
+  * kernel="torch": a Python frame loop over a (B, K, N, C) feature ring and
+    a (B, K, N, M) label ring on the device, one plain batched step
+    (`_prop_step_batched`) per frame. It is the CPU path and the twin both
+    CUDA kernels are held against (`propagate_seq_reference`).
+  * kernel="cuda": the same loop, radargram by radargram, with the
+    hand-written per-frame kernel `prop_step` (ops/labelprop_cuda.py).
+  * kernel="cuda_seq": the hand-written whole-sequence kernel `prop_seq`,
+    one launch for all B x (T-1) frames.
+
+All walk only the valid slot PREFIX L + min(t, cxt): the slots beyond it
 have not been written yet and carry the NEG_INVALID bias, so their softmax
 weight is exactly 0 and skipping them changes no output.
 """
@@ -59,17 +65,18 @@ def radius_mask(h: int, w: int, radius: float) -> np.ndarray:
 
 
 def _push_frame(long_mem, feats, labels, t: int, q, pred) -> None:
-    """Write frame t's features and labels into the ring IN PLACE: ring slot
-    L + t mod cxt, plus slot j when t is the pinned frame long_mem[j]."""
+    """Write frame t's features and labels into the batched ring IN PLACE:
+    ring slot L + t mod cxt, plus slot j when t is the pinned frame
+    long_mem[j]. feats (B, K, N, C), labels (B, K, N, M)."""
     L = len(long_mem)
-    cxt = feats.shape[0] - L
+    cxt = feats.shape[1] - L
     slot = L + t % cxt
-    feats[slot].copy_(q)
-    labels[slot].copy_(pred)
+    feats[:, slot].copy_(q)
+    labels[:, slot].copy_(pred)
     for j, fj in enumerate(long_mem):
         if t == fj:
-            feats[j].copy_(q)
-            labels[j].copy_(pred)
+            feats[:, j].copy_(q)
+            labels[:, j].copy_(pred)
 
 
 def _slot_validity(long_mem, cxt: int, t: torch.Tensor) -> torch.Tensor:
@@ -85,31 +92,85 @@ def _slot_validity(long_mem, cxt: int, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([(t - pins > cxt), ring], dim=1).float()
 
 
-def _prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: int, nslots: int):
-    """One propagation frame in plain PyTorch: the CUDA kernel's twin.
+def _prop_step_batched(feats, query, mask, slot_bias, labels, temperature: float, knn: int,
+                       nslots: int):
+    """One propagation frame for B radargrams in plain PyTorch: the twin of
+    both CUDA kernels.
 
-    feats (K, N, C); query (N, C); mask (N_src, N_query) additive;
-    slot_bias (K,) additive per slot; labels (K, N, M). Only the first
-    `nslots` slots are read. Returns pred (N, M).
+    feats (B, K, N, C); query (B, N, C); mask (N_src, N_query) additive;
+    slot_bias (K,) additive per slot; labels (B, K, N, M). Only the first
+    `nslots` slots are read. Returns pred (B, N, M).
 
     The winners come from a stable descending sort of the flattened
     (nslots*N) candidate axis, which puts the lowest candidate index first
     among equal values, as `lax.top_k` does; `torch.topk` promises no tie
     order. The temperature divides through a device tensor: PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which moves
-    values by an ulp and can flip top-k ties."""
-    K, N, C = feats.shape
+    values by an ulp and can flip top-k ties. The softmax-weighted sum runs
+    winner by winner, e_j = exp(v_j - v_0), num += e_j * label_j,
+    den += e_j, pred = num / den: the order and the roundings of the
+    kernels (csrc/prop_common.cuh)."""
+    B, K, N, C = feats.shape
     M = labels.shape[-1]
-    f = feats[:nslots]
     temp = torch.full((), temperature, dtype=torch.float32, device=feats.device)
-    aff = torch.einsum("knc,mc->knm", f, query)
-    aff = (aff + mask[None] + slot_bias[:nslots, None, None]) / temp
-    flat = aff.reshape(nslots * N, N).T  # (N_query, candidates)
+    aff = torch.einsum("bknc,bmc->bknm", feats[:, :nslots], query)
+    aff = (aff + mask + slot_bias[:nslots, None, None]) / temp
+    flat = aff.reshape(B, nslots * N, N).transpose(1, 2)  # (B, N_query, candidates)
     k = min(knn, nslots * N)
-    vals, idx = torch.sort(flat, dim=1, descending=True, stable=True)
-    w = torch.softmax(vals[:, :k], dim=-1)
-    src = labels[:nslots].reshape(nslots * N, M)[idx[:, :k]]  # (N, k, M)
-    return torch.einsum("nk,nkm->nm", w, src)
+    vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    rows = torch.arange(B, device=feats.device)[:, None, None]
+    src = labels[:, :nslots].reshape(B, nslots * N, M)[rows, idx]  # (B, N, k, M)
+    e = torch.exp(vals - vals[..., :1])
+    num = torch.zeros((B, N, M), dtype=torch.float32, device=feats.device)
+    den = torch.zeros((B, N, 1), dtype=torch.float32, device=feats.device)
+    for j in range(k):
+        num = num + e[..., j, None] * src[..., j, :]
+        den = den + e[..., j, None]
+    return num / den
+
+
+def _prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: int, nslots: int):
+    """One frame of one radargram (feats (K, N, C), query (N, C), labels
+    (K, N, M) -> pred (N, M)): the B = 1 view of `_prop_step_batched`, the
+    twin of the `prop_step` kernel."""
+    return _prop_step_batched(
+        feats[None], query[None], mask, slot_bias, labels[None], temperature, knn, nslots
+    )[0]
+
+
+def _frame_loop(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: int, step):
+    """The frame loop over a batched ring: emb (B, T, N, C), seeds (B, N, M)
+    -> soft (B, T, N, M), frame 0 the seeds. `step` predicts one frame
+    (`_prop_step_batched` or a kernel with its signature)."""
+    B, T, N, C = emb.shape
+    M = seeds.shape[-1]
+    dev = emb.device
+    L = len(long_mem)
+    K = L + cxt
+    feats = torch.zeros((B, K, N, C), dtype=torch.float32, device=dev)
+    labels = torch.zeros((B, K, N, M), dtype=torch.float32, device=dev)
+    _push_frame(long_mem, feats, labels, 0, emb[:, 0], seeds)
+    soft = torch.empty((B, T, N, M), dtype=torch.float32, device=dev)
+    soft[:, 0] = seeds
+    # every frame's slot bias at once, one small upload instead of T
+    frames = torch.arange(1, T, device=dev)
+    bias_all = (1.0 - _slot_validity(long_mem, cxt, frames)) * NEG_INVALID
+    for t in range(1, T):
+        nslots = L + min(t, cxt)
+        pred = step(feats, emb[:, t], mask, bias_all[t - 1], labels, temperature, knn, nslots)
+        soft[:, t] = pred
+        _push_frame(long_mem, feats, labels, t, emb[:, t], pred)
+    return soft
+
+
+def propagate_seq_reference(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: int):
+    """The plain PyTorch twin of the `prop_seq` kernel: the whole propagation
+    of B radargrams, emb (B, T, N, C), seeds (B, N, M) -> soft (B, T, N, M),
+    one batched step per frame over a (B, K, N, C) feature ring and a
+    (B, K, N, M) label ring."""
+    return _frame_loop(emb, seeds, mask, tuple(long_mem), cxt, temperature, knn,
+                       _prop_step_batched)
 
 
 def _validate_cfg(cfg: LabelPropConfig, N: int, grid_hw, device):
@@ -131,16 +192,47 @@ def _validate_cfg(cfg: LabelPropConfig, N: int, grid_hw, device):
     return mask, long_mem
 
 
-def resolve_kernel(kernel: str, device: torch.device) -> str:
-    """'auto' -> 'cuda' on a CUDA device, 'torch' on the CPU. The CUDA kernel
-    on a CPU device is an error, not a silent switch."""
+KERNELS = ("torch", "cuda", "cuda_seq")
+
+
+def resolve_kernel(kernel: str, device: torch.device, batched: bool = False) -> str:
+    """'auto' -> on a CUDA device 'cuda' (one radargram) or 'cuda_seq' (a
+    batch), on the CPU 'torch'. Names outside KERNELS raise, and so does a
+    CUDA kernel on a CPU device: nothing switches quietly."""
     if kernel == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
-    if kernel not in ("torch", "cuda"):
-        raise ValueError(f"unknown kernel {kernel!r} (expected 'auto', 'torch' or 'cuda')")
-    if kernel == "cuda" and device.type != "cuda":
-        raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
+        if device.type != "cuda":
+            return "torch"
+        return "cuda_seq" if batched else "cuda"
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r} (expected 'auto' or one of {KERNELS})")
+    if kernel.startswith("cuda") and device.type != "cuda":
+        raise ValueError(f"kernel={kernel!r} needs a CUDA device, got {device}")
     return kernel
+
+
+def _cuda_step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
+    """The `prop_step` kernel in `_frame_loop`'s batched signature (B = 1)."""
+    from .labelprop_cuda import prop_step
+
+    return prop_step(feats[0], query[0], mask, slot_bias, labels[0], temperature, knn,
+                     nslots)[None]
+
+
+def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kernel: str):
+    """soft (B, T, N, M) through the resolved kernel: 'torch' the plain
+    batched loop, 'cuda' one prop_step launch per frame, radargram by
+    radargram, 'cuda_seq' one prop_seq launch."""
+    args = (long_mem, cfg.cxt_size, cfg.temperature, knn)
+    if kernel == "cuda_seq":
+        from .labelprop_cuda import prop_seq
+
+        return prop_seq(emb, seeds, mask, *args)
+    if kernel == "cuda":
+        return torch.cat([
+            _frame_loop(emb[b : b + 1], seeds[b : b + 1], mask, *args, _cuda_step)
+            for b in range(emb.shape[0])
+        ])
+    return propagate_seq_reference(emb, seeds, mask, *args)
 
 
 @torch.no_grad()
@@ -156,42 +248,62 @@ def propagate_labels(
       cfg: LabelPropConfig.
       grid_hw: patch-grid shape per frame; default (N, 1), a vertical column
         of patches.
-      kernel: 'torch' (plain step), 'cuda' (the hand-written kernel) or
-        'auto' ('cuda' on a CUDA device, 'torch' on the CPU).
+      kernel: 'torch' (plain step), 'cuda' (the per-frame kernel, one launch
+        per frame), 'cuda_seq' (the whole-sequence kernel, one launch; the
+        B = 1 view of `propagate_labels_batched`) or 'auto' ('cuda' on a
+        CUDA device, 'torch' on the CPU).
       device: where to run; default cuda (raises when CUDA is absent).
 
     Returns:
       soft: (T, N, M) float32 soft labels per frame (frame 0 = the seed).
       pred: (T, N) int64 argmax labels (first maximum on ties).
     """
-    device = resolve_device(device)
-    kernel = resolve_kernel(kernel, device)
-    if kernel == "cuda":
-        from .labelprop_cuda import prop_step as step
-    else:
-        step = _prop_step
-    emb = torch.as_tensor(emb, dtype=torch.float32, device=device).contiguous()
-    seed = torch.as_tensor(seed_labels, dtype=torch.float32, device=device)
-    T, N, C = emb.shape
-    M = seed.shape[-1]
-    mask, long_mem = _validate_cfg(cfg, N, grid_hw, device)
-    L, cxt = len(long_mem), cfg.cxt_size
-    K = L + cxt
-    knn = min(cfg.knn, K * N)
+    emb = torch.as_tensor(emb, dtype=torch.float32)
+    seed = torch.as_tensor(seed_labels, dtype=torch.float32)
+    soft, pred = propagate_labels_batched(
+        emb[None], seed[None], cfg, grid_hw,
+        resolve_kernel(kernel, resolve_device(device)), device=device,
+    )
+    return soft[0], pred[0]
 
-    feats = torch.zeros((K, N, C), dtype=torch.float32, device=device)
-    labels = torch.zeros((K, N, M), dtype=torch.float32, device=device)
-    _push_frame(long_mem, feats, labels, 0, emb[0], seed)
-    soft = torch.empty((T, N, M), dtype=torch.float32, device=device)
-    soft[0] = seed
-    # every frame's slot bias at once, one small upload instead of T
-    frames = torch.arange(1, T, device=device)
-    bias_all = (1.0 - _slot_validity(long_mem, cxt, frames)) * NEG_INVALID
-    for t in range(1, T):
-        nslots = L + min(t, cxt)
-        pred = step(
-            feats, emb[t], mask, bias_all[t - 1], labels, cfg.temperature, knn, nslots
-        )
-        soft[t] = pred
-        _push_frame(long_mem, feats, labels, t, emb[t], pred)
+
+@torch.no_grad()
+def propagate_labels_batched(
+    emb, seed_labels, cfg: LabelPropConfig, grid_hw=None, kernel: str = "auto",
+    batch_block: int | None = None, device=None,
+):
+    """Propagate B radargrams at once: emb (B, T, N, C), seed_labels
+    (B, N, M) -> soft (B, T, N, M), pred (B, T, N).
+
+    kernel: as in `propagate_labels`, except that 'auto' is 'cuda_seq' on a
+    CUDA device: one launch of the whole-sequence kernel for the batch.
+    'cuda' runs the per-frame kernel radargram by radargram.
+
+    batch_block: when set, the batch runs in chunks of this size (one
+    launch per chunk under 'cuda_seq'), bounding the working set; a
+    trailing partial chunk is padded with the first radargram and its
+    outputs are dropped. The results equal the unchunked call."""
+    device = resolve_device(device)
+    kernel = resolve_kernel(kernel, device, batched=True)
+    emb = torch.as_tensor(emb, dtype=torch.float32, device=device).contiguous()
+    seeds = torch.as_tensor(seed_labels, dtype=torch.float32, device=device).contiguous()
+    B, T, N, C = emb.shape
+    mask, long_mem = _validate_cfg(cfg, N, grid_hw, device)
+    knn = min(cfg.knn, (len(long_mem) + cfg.cxt_size) * N)
+    if batch_block is None:
+        soft = _propagate(emb, seeds, mask, long_mem, cfg, knn, kernel)
+        return soft, soft.argmax(dim=-1)
+    bb = int(batch_block)
+    if bb < 1:
+        raise ValueError(f"batch_block must be >= 1, got {batch_block}")
+    bb = min(bb, B)
+    n_chunks = -(-B // bb)
+    pad = n_chunks * bb - B
+    if pad:
+        emb = torch.cat([emb, emb[:1].expand(pad, *emb.shape[1:])])
+        seeds = torch.cat([seeds, seeds[:1].expand(pad, *seeds.shape[1:])])
+    soft = torch.cat([
+        _propagate(emb[i : i + bb], seeds[i : i + bb], mask, long_mem, cfg, knn, kernel)
+        for i in range(0, n_chunks * bb, bb)
+    ])[:B]
     return soft, soft.argmax(dim=-1)

@@ -1,16 +1,21 @@
-"""The hand-written CUDA propagation step (csrc/prop_step.cu): build, bind,
-launch.
+"""The hand-written CUDA propagation kernels: build, bind, launch.
 
-Replaces the Pallas TPU kernel `_prop_step_kernel`
-(radar_sounder_crw_tpu/ops/labelprop_pallas.py). The source is compiled at
-first use with `nvcc` for sm_90a into a shared library with a plain C
-interface, under `.torch_ext_build/` beside the package, and loaded with
-ctypes; a build keyed by the source's hash is reused. A failed build or
-launch raises: nothing falls back to the plain step on a CUDA tensor.
+  * `prop_step` (csrc/prop_step.cu) replaces the Pallas TPU kernel
+    `_prop_step_kernel`: one frame for all N queries.
+  * `prop_seq` (csrc/prop_seq.cu) replaces `_prop_seq_v2_kernel`: the
+    whole (B, T-1) propagation of a batch of radargrams in one launch.
+(both in radar_sounder_crw_tpu/ops/labelprop_pallas.py)
 
-`prop_step` on CPU tensors runs the plain PyTorch twin
-(`ops/labelprop._prop_step`); on CUDA tensors it launches the kernel.
-`launches["prop_step"]` counts the kernel's launches.
+Each source is compiled at first use with its own `nvcc` for sm_90a (all
+sources at once) into a shared library with a plain C interface, under
+`.torch_ext_build/` beside the package, and loaded with ctypes; a build
+keyed by the hash of the sources and flags is reused. A failed build or
+launch raises: nothing falls back to the plain version on a CUDA tensor.
+
+On CPU tensors each wrapper runs its plain PyTorch twin
+(`ops/labelprop._prop_step`, `ops/labelprop.propagate_seq_reference`); on
+CUDA tensors it launches the kernel. `launches[name]` counts each kernel's
+launches.
 """
 
 from __future__ import annotations
@@ -25,16 +30,19 @@ from pathlib import Path
 import torch
 
 from .labelprop import _prop_step as prop_step_reference
+from .labelprop import propagate_seq_reference
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "prop_step.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"prop_step": CSRC / "prop_step.cu", "prop_seq": CSRC / "prop_seq.cu"}
+HEADERS = (CSRC / "prop_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-launches = {"prop_step": 0}
-_lib = None
+launches = {"prop_step": 0, "prop_seq": 0}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -45,42 +53,62 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/prop_step.cu (once per source hash); returns the library.
-    verbose=True prints ptxas's register and shared-memory report."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libprop_step_{tag}.so"
-    if out.exists() and not verbose:
-        return out
+def _library_path(name: str) -> Path:
+    blob = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build(verbose: bool = False) -> dict[str, Path]:
+    """Compile every kernel source without a library for its hash, one nvcc
+    per source, all started together; returns {name: library}.
+    verbose=True rebuilds all and prints ptxas's register and
+    shared-memory report."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    jobs = {}
+    for name, src in SOURCES.items():
+        out = _library_path(name)
+        if out.exists() and not verbose:
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+               "-o", str(tmp), str(src)]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(f"[{name}] {err.strip()}")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _library_path(name) for name in SOURCES}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def _library(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build()[name]))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.prop_step_launch.argtypes = [p] * 7 + [i, i, i, ctypes.c_float, i, i, p]
-        lib.prop_step_launch.restype = i
-        lib.prop_step_max_dynamic_smem.argtypes = []
-        lib.prop_step_max_dynamic_smem.restype = i
-        lib.prop_step_max_knn.argtypes = []
-        lib.prop_step_max_knn.restype = i
-        lib.prop_step_error_string.argtypes = [i]
-        lib.prop_step_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        if name == "prop_step":
+            lib.prop_step_launch.argtypes = [p] * 7 + [i, i, i, ctypes.c_float, i, i, p]
+        else:
+            lib.prop_seq_launch.argtypes = [p] * 5 + [i] * 7 + [ctypes.c_float] + [i] * 4 + [p]
+            lib.prop_seq_cluster_size.argtypes = [i] * 6
+            lib.prop_seq_cluster_size.restype = i
+            lib.prop_seq_smem_bytes.argtypes = [i, i, i, i]
+            lib.prop_seq_smem_bytes.restype = ctypes.c_longlong
+        getattr(lib, f"{name}_launch").restype = i
+        for fn in ("max_dynamic_smem", "max_classes"):
+            getattr(lib, f"{name}_{fn}").argtypes = []
+            getattr(lib, f"{name}_{fn}").restype = i
+        getattr(lib, f"{name}_error_string").argtypes = [i]
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check(name, x, shape, device):
@@ -91,6 +119,29 @@ def _check(name, x, shape, device):
         )
     if tuple(x.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
+
+
+def _check_common(lib, name: str, knn: int, M: int) -> None:
+    if knn < 1:
+        raise ValueError(f"knn must be >= 1, got {knn}")
+    if not 1 <= M <= getattr(lib, f"{name}_max_classes")():
+        raise ValueError(
+            f"{name}: the class count must lie in [1, {getattr(lib, f'{name}_max_classes')()}], "
+            f"got {M}"
+        )
+
+
+def _smem_limit(lib, name: str) -> int:
+    limit = getattr(lib, f"{name}_max_dynamic_smem")()
+    if limit < 0:
+        raise RuntimeError(f"{name}: cannot query the shared-memory limit")
+    return limit
+
+
+def _raise_on(lib, name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
 def prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: int, nslots: int):
@@ -110,21 +161,17 @@ def prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: in
     _check("mask", mask, (N, N), dev)
     _check("slot_bias", slot_bias, (K,), dev)
     _check("labels", labels, (K, N, M), dev)
-    lib = _library()
+    lib = _library("prop_step")
     if not 1 <= nslots <= K:
         raise ValueError(f"nslots must lie in [1, {K}], got {nslots}")
-    if not 1 <= knn <= lib.prop_step_max_knn():
-        raise ValueError(f"knn must lie in [1, {lib.prop_step_max_knn()}], got {knn}")
+    _check_common(lib, "prop_step", knn, M)
     pred = torch.empty((N, M), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         # the affinity column lives in shared memory when it fits, else in
         # one global scratch column per query
-        limit = lib.prop_step_max_dynamic_smem()
-        if limit < 0:
-            raise RuntimeError("prop_step: cannot query the shared-memory limit")
         col_bytes = 4 * (((C + 3) & ~3) + nslots * N)
         gscratch = (
-            None if col_bytes <= limit
+            None if col_bytes <= _smem_limit(lib, "prop_step")
             else torch.empty((N, nslots * N), dtype=torch.float32, device=dev)
         )
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -134,8 +181,55 @@ def prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: in
             None if gscratch is None else gscratch.data_ptr(),
             N, C, M, float(temperature), int(knn), int(nslots), stream,
         )
-    if err != 0:
-        msg = lib.prop_step_error_string(err).decode()
-        raise RuntimeError(f"prop_step launch failed: {msg} ({err})")
+    _raise_on(lib, "prop_step", err)
     launches["prop_step"] += 1
     return pred
+
+
+def prop_seq(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """The whole propagation of a batch of radargrams: emb (B, T, N, C)
+    L2-normalized, seeds (B, N, M), mask (N, N) -> soft (B, T, N, M), frame 0
+    the seeds. CPU tensors take the plain twin; CUDA tensors launch the
+    kernel once (none when T == 1)."""
+    if emb.device.type == "cpu":
+        return propagate_seq_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
+    B, T, N, C = emb.shape
+    M = seeds.shape[-1]
+    dev = emb.device
+    _check("emb", emb, (B, T, N, C), dev)
+    _check("seeds", seeds, (B, N, M), dev)
+    _check("mask", mask, (N, N), dev)
+    lib = _library("prop_seq")
+    _check_common(lib, "prop_seq", knn, M)
+    if cxt < 1:
+        raise ValueError(f"cxt must be >= 1, got {cxt}")
+    soft = torch.empty((B, T, N, M), dtype=torch.float32, device=dev)
+    soft[:, 0] = seeds
+    if T == 1 or B == 0:
+        return soft
+    L = len(long_mem)
+    ns_max = L + min(T - 1, cxt)
+    # a non-empty array, so the kernel always gets a valid pointer
+    pins = torch.tensor(list(long_mem) or [0], dtype=torch.int32, device=dev)
+    vec4 = int(C % 4 == 0 and emb.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        in_smem = lib.prop_seq_smem_bytes(C, N, ns_max, 0) <= _smem_limit(lib, "prop_seq")
+        # CTAs per radargram (a thread-block cluster), from B, N and the card
+        ncl = lib.prop_seq_cluster_size(B, N, C, ns_max, int(not in_smem), vec4)
+        if ncl < 1:
+            raise RuntimeError("prop_seq: cannot size the launch's clusters")
+        gscratch = (
+            None if in_smem
+            else torch.empty((B * ncl, lib.prop_seq_group(), ns_max * N), dtype=torch.float32,
+                             device=dev)
+        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.prop_seq_launch(
+            emb.data_ptr(), mask.data_ptr(), pins.data_ptr(), soft.data_ptr(),
+            None if gscratch is None else gscratch.data_ptr(),
+            B, T, N, C, M, L, int(cxt), float(temperature), int(knn), ns_max, ncl, vec4,
+            stream,
+        )
+    _raise_on(lib, "prop_seq", err)
+    launches["prop_seq"] += 1
+    return soft

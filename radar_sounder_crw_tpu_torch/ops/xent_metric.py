@@ -21,18 +21,19 @@ def horizontality_xent(
     quirk_channel_shift: bool = False,
     row_softmax: bool = False,
 ) -> torch.Tensor:
-    """emb: (T, N, C) L2-normalized. Returns xent (N, T-1)."""
-    T = emb.shape[0]
+    """emb: (..., T, N, C) L2-normalized. Returns xent (..., N, T-1); a
+    leading batch axis runs every radargram at once."""
+    T = emb.shape[-3]
     if quirk_channel_shift:
-        e = emb[: T - 1]
-        A = torch.einsum("tnc,tmc->tnm", e[:, :, :-1], e[:, :, 1:]) / tau
+        e = emb[..., : T - 1, :, :]
+        A = torch.einsum("...tnc,...tmc->...tnm", e[..., :-1], e[..., 1:]) / tau
     else:
-        A = torch.einsum("tnc,tmc->tnm", emb[:-1], emb[1:]) / tau
-    lse = torch.logsumexp(A, dim=2 if row_softmax else 1)  # (T-1, N)
-    diag = torch.diagonal(A, dim1=1, dim2=2)  # (T-1, N)
-    return (lse - diag).T
+        A = torch.einsum("...tnc,...tmc->...tnm", emb[..., :-1, :, :], emb[..., 1:, :, :]) / tau
+    lse = torch.logsumexp(A, dim=-1 if row_softmax else -2)  # (..., T-1, N)
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)  # (..., T-1, N)
+    return (lse - diag).transpose(-1, -2)
 
 
 def column_diffs(xent: torch.Tensor) -> torch.Tensor:
-    """Σ_n |xent[:, i] - xent[:, i+1]|: (N, T-1) -> (T-2,)."""
-    return torch.abs(xent[:, :-1] - xent[:, 1:]).sum(dim=0)
+    """Σ_n |xent[..., :, i] - xent[..., :, i+1]|: (..., N, T-1) -> (..., T-2)."""
+    return torch.abs(xent[..., :-1] - xent[..., 1:]).sum(dim=-2)

@@ -1,4 +1,4 @@
-"""The CUDA propagation kernel against its plain PyTorch twin, on the card.
+"""The CUDA propagation kernels against their plain PyTorch twins, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one. The file imports no JAX, so on a machine without it run:
@@ -6,7 +6,10 @@ one. The file imports no JAX, so on a machine without it run:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: pred to atol 1e-4 (a convex mix of labels in [0, 1]; the kernel
-and cuBLAS sum the dot products in other orders), argmax exactly equal.
+and cuBLAS sum the dot products in other orders), argmax exactly equal. The
+whole-sequence kernel runs on embeddings on a 2**-5 grid, so every dot
+product is exact in any summation order and a near-tie cannot send the two
+sides' selections apart over a hundred frames.
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ from radar_sounder_crw_tpu_torch.ops.labelprop import (
     LabelPropConfig,
     _prop_step,
     propagate_labels,
+    propagate_labels_batched,
+    propagate_seq_reference,
     radius_mask,
 )
 
@@ -96,6 +101,64 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="nslots"):
         labelprop_cuda.prop_step(*args, 0.1, 3, 5)
     with pytest.raises(ValueError, match="knn"):
-        labelprop_cuda.prop_step(*args, 0.1, 10**6, 4)
+        labelprop_cuda.prop_step(*args, 0.1, 0, 4)
+    with pytest.raises(ValueError, match="class count"):
+        labelprop_cuda.prop_step(*args[:4], torch.zeros((4, 6, 200), device=cuda), 0.1, 3, 4)
     with pytest.raises(ValueError, match="contiguous float32"):
         labelprop_cuda.prop_step(args[0].double(), *args[1:], 0.1, 3, 4)
+
+
+def _seq_inputs(B, T, N, C, M, seed, device):
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((B, T, N, C)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    emb = np.round(emb * 32) / 32  # exact dot products
+    seeds = rng.random((B, N, M)).astype(np.float32)
+    return torch.as_tensor(emb, device=device), torch.as_tensor(seeds, device=device)
+
+
+@pytest.mark.parametrize(
+    "B,T,N,C,M,cxt,radius,temp,knn,long_mem",
+    [
+        (3, 20, 24, 32, 4, 8, 5, 0.1, 6, (0,)),  # small, ring wraps
+        (2, 12, 40, 7, 3, 20, 9, 0.05, 20, (0,)),  # C not a multiple of 4
+        (3, 12, 10, 8, 3, 4, 3, 0.07, 3, (0, 2)),  # pins and a wrapping ring
+    ],
+)
+def test_seq_kernel_matches_plain_twin(cuda, B, T, N, C, M, cxt, radius, temp, knn, long_mem):
+    emb, seeds = _seq_inputs(B, T, N, C, M, 0, cuda)
+    mask = torch.as_tensor(radius_mask(N, 1, radius), device=cuda)
+    before = labelprop_cuda.launches["prop_seq"]
+    got = labelprop_cuda.prop_seq(emb, seeds, mask, long_mem, cxt, temp, knn)
+    want = propagate_seq_reference(emb, seeds, mask, long_mem, cxt, temp, knn)
+    torch.cuda.synchronize()
+    assert labelprop_cuda.launches["prop_seq"] == before + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= ATOL
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    # the batched entry point routes 'auto' on the card to this kernel
+    cfg = LabelPropConfig(cxt_size=cxt, radius=radius, temperature=temp, knn=knn,
+                          long_mem=long_mem)
+    soft, _ = propagate_labels_batched(emb, seeds, cfg)
+    assert labelprop_cuda.launches["prop_seq"] == before + 2
+    assert torch.equal(soft, got)
+
+
+def test_seq_kernel_single_frame_makes_no_launch(cuda):
+    emb, seeds = _seq_inputs(2, 1, 6, 8, 3, 1, cuda)
+    mask = torch.as_tensor(radius_mask(6, 1, 3), device=cuda)
+    before = labelprop_cuda.launches["prop_seq"]
+    soft = labelprop_cuda.prop_seq(emb, seeds, mask, (0,), 4, 0.1, 3)
+    assert labelprop_cuda.launches["prop_seq"] == before
+    assert torch.equal(soft[:, 0], seeds)
+
+
+def test_cuda_seq_refuses_cpu_tensors_and_devices(cuda):
+    emb = np.zeros((1, 3, 4, 8), np.float32)
+    seed = np.eye(2, dtype=np.float32)[[0, 1, 0, 1]][None]
+    with pytest.raises(ValueError, match="CUDA device"):
+        propagate_labels_batched(emb, seed, LabelPropConfig(), kernel="cuda_seq", device="cpu")
+    e, s = torch.as_tensor(emb, device=cuda), torch.as_tensor(seed, device=cuda)
+    mask = torch.zeros((4, 4), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        labelprop_cuda.prop_seq(e, s.cpu(), mask, (0,), 2, 0.1, 2)
