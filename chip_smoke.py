@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one line each, any failure exits non-zero:
-  1. build both CUDA propagation kernels, csrc/prop_step.cu and
-     csrc/prop_seq.cu (sm_90a, one nvcc each, started together);
+  1. build the three CUDA propagation kernels, csrc/prop_step.cu,
+     csrc/prop_seq.cu and csrc/prop_all.cu (sm_90a, one nvcc each, started
+     together);
   2. hold prop_step against its plain PyTorch twin at MC3 and SHARAD step
      shapes, a tie-heavy case, a valid prefix nslots < K, knn above the
      candidate count, an odd channel count and the global-scratch path:
@@ -23,7 +24,14 @@ Phases, one line each, any failure exits non-zero:
      tie-heavy dyadic values, and at T = 1 (no launch): soft to 1e-4
      absolute, argmax exactly equal; then cuda_seq (B = 1) against the
      per-frame cuda path on the MC3 window: >= 99.5 % equal maps;
-  6. the Miguel survey at full width, as `scripts/test_all.py --batched
+  6. hold prop_all bit for bit against its plain twin
+     (propagate_all_reference) at the same shapes plus an empty long_mem,
+     one launch per case (none at T = 1), and against prop_seq at the survey
+     shape (soft to 1e-5, >= 99.5 % equal maps); then MC3 seed->map and
+     reseed through PropagationPipeline(kernel="cuda_resident"): one
+     prop_all launch each, >= 99.5 % equal maps with the cuda path, equal
+     change_idx, wall times;
+  7. the Miguel survey at full width, as `scripts/test_all.py --batched
      --correction --correction_tail --use_last` runs it: 63 windows of
      T = 100 frames, N = 50, of the synthetic 410 x 105120 line; forward
      with change detection, the correction tails bucketed by length, the
@@ -31,14 +39,20 @@ Phases, one line each, any failure exits non-zero:
      whole-sequence kernel route against the plain route: >= 99.5 % equal
      maps, equal change indices; the device-gathered survey equal to
      propagate_batch on host-staged windows; prop_seq launched once per
-     survey call and once per correction bucket;
-  7. survey times: wall ms and radargrams/s (median of 5), the encode of
-     the 315,000 patches, prop_seq per launch against its bound, the plain
-     and the per-frame-kernel survey propagation, a batched torch.bmm of
-     the saturated affinity product as a yardstick, and the device's busy
-     time by kernel over one survey call (torch.profiler);
-  8. a JSON line describing each kernel, the card's name and power limit,
+     survey call and once per correction bucket; then every pass through
+     kernel="cuda_resident": one prop_all launch each, >= 99.5 % equal maps
+     with cuda_seq;
+  8. survey times: wall ms and radargrams/s (median of 5), the encode of
+     the 315,000 patches, prop_seq and prop_all per launch against their
+     bound (prop_all also at MC3, B = 1), the plain twins, the plain and the
+     per-frame-kernel survey propagation, a batched torch.bmm of the
+     saturated affinity product as a yardstick, and the device's busy time
+     by kernel over one survey call (torch.profiler);
+  9. a JSON line describing each kernel, the card's name and power limit,
      and the final {"ok": true, ...} line.
+
+Launch counts are set to 0 just before each path is driven and read just
+after it: the default main path (phases 3 and 7) and the cuda_resident one.
 """
 
 from __future__ import annotations
@@ -60,6 +74,14 @@ MAP_AGREEMENT = 0.995
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+
+    for name in labelprop_cuda.launches:
+        labelprop_cuda.launches[name] = 0
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -179,10 +201,11 @@ def device_busy(fn):
 
 
 def survey_phase(smi):
-    """Phases 6 and 7: the full-width Miguel survey through the product
-    entry point, on the whole-sequence kernel and on the plain route.
-    Returns (prop_seq launches on the survey's main path, what bounds
-    prop_seq, times)."""
+    """Phases 7 and 8: the full-width Miguel survey through the product
+    entry point, on the whole-sequence kernels and on the plain route.
+    Returns (launches by kernel on the survey's main path, launches by
+    kernel on the cuda_resident path, what bounds the whole-sequence
+    kernels, times)."""
     from radar_sounder_crw_tpu_torch.data import create_dataset, get_reference
     from radar_sounder_crw_tpu_torch.infer import (
         PropagationPipeline,
@@ -195,6 +218,7 @@ def survey_phase(smi):
     from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
     from radar_sounder_crw_tpu_torch.ops.labelprop import (
         LabelPropConfig,
+        propagate_all_reference,
         propagate_labels_batched,
         propagate_seq_reference,
         radius_mask,
@@ -220,50 +244,67 @@ def survey_phase(smi):
     pipe = PropagationPipeline(model, cfg, nclasses, cache_embeddings=False)
     plain = PropagationPipeline(model, cfg, nclasses, kernel="torch", cache_embeddings=False)
     per_frame = PropagationPipeline(model, cfg, nclasses, kernel="cuda", cache_embeddings=False)
+    resident = PropagationPipeline(model, cfg, nclasses, kernel="cuda_resident",
+                                   cache_embeddings=False)
     pipe.propagate_survey(ds, ids[:2], refs[:2])  # warm-up: upload, cuDNN choice
     torch.cuda.synchronize()
+    seg_rev = reverse_unfold_flip(seg, rg_len)
+    rev_refs = [seg_rev[:, rg_len * t : rg_len * t + patch[1]] for t in range(R)]
 
     def to_px(pred):
         return pipe.prediction_to_pixels(pred, (seg.shape[0], rg_len))
 
-    def check(name, got, want, ch_got=None, ch_want=None):
+    def check(name, got, want, ch_got=None, ch_want=None, route="cuda_seq vs plain"):
         agree = float((got == want).mean())
         ok = agree >= MAP_AGREEMENT and ch_got == ch_want and got.shape == want.shape
-        phase("survey", f"{name}: cuda_seq vs plain map agreement={agree:.5f}"
+        phase("survey", f"{name}: {route} map agreement={agree:.5f}"
               + ("" if ch_got is None else f", change indices equal={ch_got == ch_want}"))
         if not ok:
-            raise SystemExit(f"survey pass {name}: cuda_seq disagrees with the plain route")
+            raise SystemExit(f"survey pass {name}: {route} disagree")
+
+    def run_passes(p, buckets=None):
+        """Forward with change detection, the correction tails bucketed by
+        length (from this forward unless given), reverse. Returns the maps,
+        the change indices, the buckets and the launches of each pass (all
+        kernels)."""
+        per_pass = []
+
+        def launched():
+            torch.cuda.synchronize()
+            total = sum(labelprop_cuda.launches.values())
+            per_pass.append(total - sum(per_pass))
+
+        fwd, change = p.propagate_survey(ds, ids, refs, detect_change=True)
+        launched()
+        if buckets is None:
+            buckets = {}
+            for t, ci in enumerate(change):
+                if ci is None or ci >= T - 1:
+                    continue
+                small = T - ci
+                off = correction_pixel_offset(small, patch[1], overlap[1])
+                c0 = rg_len * t + rg_len - off
+                buckets.setdefault(small, []).append((t, off, small, ci, seg[:, c0 : c0 + patch[1]]))
+        corrected = {}
+        for small, group in sorted(buckets.items()):
+            corrected[small] = p.propagate_survey(
+                ds, [ids[g[0]] for g in group], [g[4] for g in group], length=small,
+                frame_offsets=[g[3] for g in group])
+            launched()
+        rev = p.propagate_survey(ds, ids, rev_refs, use_last=True)
+        launched()
+        return fwd, change, buckets, corrected, rev, per_pass
 
     # the main path: forward, correction buckets, reverse --------------------
-    labelprop_cuda.launches["prop_seq"] = 0
-    labelprop_cuda.launches["prop_step"] = 0
-    preds, change = pipe.propagate_survey(ds, ids, refs, detect_change=True)
-    tasks = []
-    for t, ci in enumerate(change):
-        if ci is None or ci >= T - 1:
-            continue
-        small = T - ci
-        off = correction_pixel_offset(small, patch[1], overlap[1])
-        c0 = rg_len * t + rg_len - off
-        tasks.append((t, off, small, ci, seg[:, c0 : c0 + patch[1]]))
-    buckets: dict[int, list] = {}
-    for task in tasks:
-        buckets.setdefault(task[2], []).append(task)
-    corrected = {}
-    for small, group in sorted(buckets.items()):
-        corrected[small] = pipe.propagate_survey(
-            ds, [ids[g[0]] for g in group], [g[4] for g in group], length=small,
-            frame_offsets=[g[3] for g in group])
-    seg_rev = reverse_unfold_flip(seg, rg_len)
-    rev_refs = [seg_rev[:, rg_len * t : rg_len * t + patch[1]] for t in range(R)]
-    rev_preds = pipe.propagate_survey(ds, ids, rev_refs, use_last=True)
-    torch.cuda.synchronize()
-    launches = labelprop_cuda.launches["prop_seq"]
+    reset_launches()
+    preds, change, buckets, corrected, rev_preds, per_pass = run_passes(pipe)
+    main_launches = dict(labelprop_cuda.launches)
+    n_tails = sum(len(g) for g in buckets.values())
     want_launches = 2 + len(buckets)
-    phase("survey", f"main path: prop_seq launches={launches} (expected {want_launches}: "
-          f"forward, {len(buckets)} correction buckets of {len(tasks)} tails, reverse), "
-          f"prop_step launches={labelprop_cuda.launches['prop_step']}")
-    if launches != want_launches:
+    phase("survey", f"main path: launches {main_launches}, per pass {per_pass} (expected "
+          f"prop_seq {want_launches}, one per pass: forward, {len(buckets)} correction "
+          f"buckets of {n_tails} tails, reverse)")
+    if main_launches["prop_seq"] != want_launches or per_pass != [1] * want_launches:
         raise SystemExit("the survey did not launch prop_seq once per survey call")
 
     seg_list = [to_px(p) for p in preds]
@@ -276,14 +317,12 @@ def survey_phase(smi):
     acc = float((final == seg.ravel()).mean())
 
     # the same passes on the plain route ------------------------------------
-    ref_preds, ref_change = plain.propagate_survey(ds, ids, refs, detect_change=True)
+    ref_preds, ref_change, _, ref_corrected, ref_rev, _ = run_passes(plain, buckets)
     check("forward", preds, ref_preds, change, ref_change)
     for small, group in sorted(buckets.items()):
-        want = plain.propagate_survey(
-            ds, [ids[g[0]] for g in group], [g[4] for g in group], length=small,
-            frame_offsets=[g[3] for g in group])
-        check(f"correction T'={small} ({len(group)} tails)", corrected[small], want)
-    check("reverse", rev_preds, plain.propagate_survey(ds, ids, rev_refs, use_last=True))
+        check(f"correction T'={small} ({len(group)} tails)", corrected[small],
+              ref_corrected[small])
+    check("reverse", rev_preds, ref_rev)
     staged = pipe.propagate_batch(np.stack([ds[i] for i in ids]), refs)
     checks = {
         "prediction shape": preds.shape == (R, N, T),
@@ -297,7 +336,23 @@ def survey_phase(smi):
     phase("survey", "ok: " + ", ".join(checks)
           + f"; merged map accuracy vs ground truth {acc:.4f} (random weights)")
 
-    # 7. times ------------------------------------------------------------------
+    # every pass through the resident kernel, one prop_all launch each ------
+    reset_launches()
+    res_preds, res_change, _, res_corrected, res_rev, res_per_pass = run_passes(resident, buckets)
+    resident_launches = dict(labelprop_cuda.launches)
+    phase("survey", f"cuda_resident path: launches {resident_launches}, per pass "
+          f"{res_per_pass} (expected prop_all {want_launches}, one per pass)")
+    if (resident_launches["prop_all"] != want_launches
+            or res_per_pass != [1] * want_launches):
+        raise SystemExit("the survey did not launch prop_all once per survey call")
+    route = "cuda_resident vs cuda_seq"
+    check("forward", res_preds, preds, res_change, change, route=route)
+    for small, group in sorted(buckets.items()):
+        check(f"correction T'={small} ({len(group)} tails)", res_corrected[small],
+              corrected[small], route=route)
+    check("reverse", res_rev, rev_preds, route=route)
+
+    # 8. times ------------------------------------------------------------------
     seqs = torch.as_tensor(np.stack([ds[i] for i in ids]), device="cuda")
     seeds = torch.nn.functional.one_hot(
         torch.as_tensor(pipe._stack_seed_labels(refs, N), device="cuda").long(), nclasses).float()
@@ -310,6 +365,8 @@ def survey_phase(smi):
     args = (emb, seeds, mask, (0,), cfg.cxt_size, cfg.temperature, knn)
     kernel_ms = cuda_ms(lambda: labelprop_cuda.prop_seq(*args), iters=5, warmup=1)
     plain_ms = cuda_ms(lambda: propagate_seq_reference(*args), iters=2, warmup=1)
+    resident_ms = cuda_ms(lambda: labelprop_cuda.prop_all(*args), iters=5, warmup=1)
+    resident_plain_ms = cuda_ms(lambda: propagate_all_reference(*args), iters=2, warmup=1)
     K = 1 + cfg.cxt_size
     fk = torch.randn((R, K * N, C), device="cuda")
     bmm_ms = cuda_ms(lambda: torch.bmm(fk, emb[:, 1].transpose(1, 2)), iters=50)
@@ -327,6 +384,9 @@ def survey_phase(smi):
         "cuda_seq_propagation_ms": wall_ms(
             lambda: propagate_labels_batched(emb, seeds, cfg, kernel="cuda_seq")),
         "plain_twin_ms": plain_ms,
+        "prop_all_ms_per_launch": resident_ms,
+        "prop_all_plain_twin_ms": resident_plain_ms,
+        "survey_resident_ms": wall_ms(lambda: resident.propagate_survey(ds, ids, refs)),
         "affinity_bmm_ms": bmm_ms,
         "survey_per_frame_kernel_ms": wall_ms(
             lambda: per_frame.propagate_survey(ds, ids, refs), reps=3),
@@ -335,9 +395,9 @@ def survey_phase(smi):
     times["survey_rg_per_s"] = R / (times["survey_ms"] / 1e3)
     times.update(device_busy(lambda: pipe.propagate_survey(ds, ids, refs)))
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in times.items())
-          + f" | prop_seq GFLOP={ops / 1e9:.2f} MB={nbytes / 1e6:.1f} bound by {bound_by}"
-          + f" | encode peak memory {peak_gb:.2f} GB")
-    return launches, bound_by, times
+          + f" | prop_seq and prop_all GFLOP={ops / 1e9:.2f} MB={nbytes / 1e6:.1f} bound by "
+          + f"{bound_by} | encode peak memory {peak_gb:.2f} GB")
+    return main_launches, resident_launches, bound_by, times
 
 
 def main() -> int:
@@ -418,15 +478,16 @@ def main() -> int:
     plain = PropagationPipeline(model, cfg, nclasses, kernel="torch")
     pipe(seq, seg_ref)  # warm-up: cuDNN algorithm choice, allocator
 
-    labelprop_cuda.launches["prop_step"] = 0
+    reset_launches()
     res = pipe(seq, seg_ref, detect_change=True, return_soft=True)
     res_re = pipe.reseed(seg_ref2, reseed_frame)
     torch.cuda.synchronize()
-    launches = labelprop_cuda.launches["prop_step"]
+    mc3_launches = dict(labelprop_cuda.launches)
+    launches = mc3_launches["prop_step"]
     want_launches = (T - 1) + (-(-(T - reseed_frame) // 16) * 16 - 1)
-    phase("seed_to_map", f"cuda path: prop_step launches={launches} "
-          f"(expected {want_launches}), change_idx={res.change_idx}")
-    if launches != want_launches:
+    phase("seed_to_map", f"cuda path: launches {mc3_launches} (expected prop_step "
+          f"{want_launches}), change_idx={res.change_idx}")
+    if launches != want_launches or sum(mc3_launches.values()) != launches:
         raise SystemExit("the main path did not launch prop_step once per frame")
 
     ref = plain(seq, seg_ref, detect_change=True, return_soft=True)
@@ -541,10 +602,87 @@ def main() -> int:
     if agree_seq < MAP_AGREEMENT:
         raise SystemExit("cuda_seq disagrees with the per-frame cuda path on the MC3 window")
 
-    # 6-7. the Miguel survey at full width ---------------------------------------
-    seq_launches, seq_bound_by, survey_times = survey_phase(smi)
+    # 6. prop_all vs its plain twin, and the cuda_resident route on MC3 -------
+    from radar_sounder_crw_tpu_torch.ops.labelprop import propagate_all_reference
 
-    # 8. results ----------------------------------------------------------------
+    resident_cases = [*seq_cases[:3], ("no_pins", 2, 12, 24, 32, 4, 4, 5, 0.07, 6, (), False),
+                      *seq_cases[3:]]
+    resident_err = 0.0
+    for i, (name, B, Ts, Ns, Cs, Ms, cxt, radius, temp, knn_s, lm, ties) in enumerate(
+            resident_cases):
+        e, s0 = seq_inputs(B, Ts, Ns, Cs, Ms, 200 + i, ties)
+        m = torch.as_tensor(radius_mask(Ns, 1, radius), device="cuda")
+        before = labelprop_cuda.launches["prop_all"]
+        got = labelprop_cuda.prop_all(e, s0, m, lm, cxt, temp, knn_s)
+        n_launch = labelprop_cuda.launches["prop_all"] - before
+        want = propagate_all_reference(e, s0, m, lm, cxt, temp, knn_s)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        bitwise = torch.equal(got, want)
+        same_argmax = torch.equal(got.argmax(-1), want.argmax(-1))
+        phase("resident_vs_plain", f"{name} B={B} T={Ts} N={Ns} C={Cs} M={Ms} cxt={cxt} "
+              f"knn={knn_s} long_mem={lm}: max_abs_err={err:.3e} argmax_equal={same_argmax} "
+              f"bitwise={bitwise} launches={n_launch}")
+        if not (torch.isfinite(got).all() and bitwise and same_argmax
+                and n_launch == (1 if Ts > 1 else 0)):
+            raise SystemExit(f"prop_all differs from its plain twin on {name}")
+        resident_err = max(resident_err, err)
+        if name == "survey":  # the other weight arithmetic, same winners
+            other = labelprop_cuda.prop_seq(e, s0, m, lm, cxt, temp, knn_s)
+            diff = (got - other).abs().max().item()
+            agree_other = (got.argmax(-1) == other.argmax(-1)).float().mean().item()
+            phase("resident_vs_plain", f"survey: prop_all vs prop_seq max |soft diff|="
+                  f"{diff:.3e} map agreement={agree_other:.5f}")
+            if diff > 1e-5 or agree_other < MAP_AGREEMENT:
+                raise SystemExit("prop_all disagrees with prop_seq at the survey shape")
+
+    resident = PropagationPipeline(model, cfg, nclasses, kernel="cuda_resident")
+    resident(seq, seg_ref)  # warm-up
+    reset_launches()
+    res_r = resident(seq, seg_ref, detect_change=True, return_soft=True)
+    res_r_re = resident.reseed(seg_ref2, reseed_frame)
+    torch.cuda.synchronize()
+    resident_mc3 = dict(labelprop_cuda.launches)
+    agree_r = float((res_r.prediction == res.prediction).mean())
+    agree_r_re = float((res_r_re.prediction == res_re.prediction).mean())
+    phase("seed_to_map_resident", f"cuda_resident path: launches {resident_mc3} (expected "
+          f"prop_all 2: seed->map, reseed); vs the cuda path: map agreement={agree_r:.5f} "
+          f"reseed agreement={agree_r_re:.5f} change_idx {res_r.change_idx} vs "
+          f"{res.change_idx}")
+    checks = {
+        "one prop_all launch each": resident_mc3["prop_all"] == 2
+        and sum(resident_mc3.values()) == 2,
+        "soft finite": np.isfinite(res_r.soft).all(),
+        "map agreement": agree_r >= MAP_AGREEMENT,
+        "reseed agreement": agree_r_re >= MAP_AGREEMENT,
+        "change_idx equal": res_r.change_idx == res.change_idx,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"cuda_resident seed->map checks failed: {failed}")
+    seed_t = torch.as_tensor(seed_np, device="cuda")[None]
+    args_mc3 = (emb[None].contiguous(), seed_t, torch.as_tensor(radius_mask(N, 1, 60),
+                device="cuda"), (0,), 100, 0.01, knn)
+    mc3_ops, mc3_bytes = seq_flops_bytes(1, T, N, C, M, knn, 1, 100)
+    resident_times = {
+        "seed_to_map_resident_ms": wall_ms(
+            lambda: resident(seq, seg_ref, detect_change=False, fetch_xent=False)),
+        "reseed_resident_ms": wall_ms(lambda: resident.reseed(seg_ref2, reseed_frame)),
+        "prop_all_mc3_ms_per_launch": cuda_ms(
+            lambda: labelprop_cuda.prop_all(*args_mc3), iters=5, warmup=1),
+        "prop_all_mc3_plain_twin_ms": cuda_ms(
+            lambda: propagate_all_reference(*args_mc3), iters=2, warmup=1),
+        "prop_all_mc3_bound_ms": bound(mc3_ops, mc3_bytes)[0],
+    }
+    phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in resident_times.items()))
+    times.update(resident_times)
+
+    # 7-8. the Miguel survey at full width ---------------------------------------
+    survey_main, survey_resident, seq_bound_by, survey_times = survey_phase(smi)
+    if mc3_launches["prop_all"] + survey_main["prop_all"] != 0:
+        raise SystemExit("kernel='auto' reached prop_all")
+
+    # 9. results ----------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "prop_step",
@@ -564,7 +702,7 @@ def main() -> int:
         "route": "cuda",
         "source": "radar_sounder_crw_tpu_torch/csrc/prop_seq.cu",
         "replaces": "radar_sounder_crw_tpu/ops/labelprop_pallas.py:939",
-        "launches": seq_launches,
+        "launches": survey_main["prop_seq"],
         "max_abs_err": seq_err,
         "ms": survey_times["prop_seq_ms_per_launch"],
         "plain_ms": survey_times["plain_twin_ms"],
@@ -572,6 +710,24 @@ def main() -> int:
         "bound_by": seq_bound_by,
         "library_ms": None,
         "affinity_bmm_ms": survey_times["affinity_bmm_ms"],
+    }, {
+        "name": "prop_all",
+        "route": "cuda",
+        "source": "radar_sounder_crw_tpu_torch/csrc/prop_all.cu",
+        "replaces": "radar_sounder_crw_tpu/ops/labelprop_pallas.py:1320",
+        # 'auto' never routes to it; the cuda_resident path's own count beside
+        "launches": mc3_launches["prop_all"] + survey_main["prop_all"],
+        "launches_cuda_resident_path": resident_mc3["prop_all"] + survey_resident["prop_all"],
+        "max_abs_err": resident_err,
+        "ms": survey_times["prop_all_ms_per_launch"],
+        "plain_ms": survey_times["prop_all_plain_twin_ms"],
+        "bound_ms": survey_times["prop_seq_bound_ms"],
+        "bound_by": seq_bound_by,
+        "library_ms": None,
+        "affinity_bmm_ms": survey_times["affinity_bmm_ms"],
+        "ms_mc3_b1": times["prop_all_mc3_ms_per_launch"],
+        "plain_ms_mc3_b1": times["prop_all_mc3_plain_twin_ms"],
+        "bound_ms_mc3_b1": times["prop_all_mc3_bound_ms"],
     }], "times": times, "survey_times": survey_times}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

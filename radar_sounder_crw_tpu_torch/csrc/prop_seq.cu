@@ -5,38 +5,17 @@
 // radar_sounder_crw_tpu/ops/labelprop_pallas.py (entries
 // `propagate_all_pallas_v2` and `propagate_all_pallas_v2_batched`). It
 // computes what that kernel computes, without its TPU layout (lane packing,
-// padded rows and lanes, slot chunks). For radargram b and frame t = 1..T-1,
-// over the valid slot prefix ns = L + min(t, cxt) (L = len(long_mem)):
+// padded rows and lanes, slot chunks). For radargram b and frame t, over the
+// valid slot prefix and with the affinity column of prop_cluster.cuh:
 //
-//   slot s < L   (pin j = s):  frame long_mem[j] once it was pushed (t >
-//                long_mem[j]), else empty; valid iff t - long_mem[j] > cxt;
-//   slot L + r   (ring, r < min(t, cxt)): the last frame f < t with
-//                f mod cxt == r; always valid;
-//   aff[s*N+i] = ((emb[b,f,i] . emb[b,t,n] + mask[i,n]) + bias_s) / temperature,
-//                bias_s = 0 or NEG_INVALID; an empty slot reads zeros;
 //   soft[b,t,n] = the knn winners' softmax-weighted labels soft[b,f,i]
 //                (prop_common.cuh), frame 0 being the seed.
 //
-// The ring stays implicit: a slot's features are a frame of `emb` and its
-// labels a frame already written to `soft`, so nothing is copied between
-// frames. Slots past the prefix have not been written and carry weight
-// exactly 0 in the TPU kernel, so they are not read here.
-//
-// Design (simple first): one thread-block cluster per radargram, frames in
-// order. The N queries of a frame go in groups of 8, dealt round-robin to
-// the cluster's CTAs; a cluster.sync() (release/acquire at cluster scope)
-// ends every frame, so frame t's labels, written by all the CTAs, are in
-// place before frame t+1 reads them. The cluster size is the largest power
-// of two up to 8 that has groups to take and keeps B x size within the
-// card's SMs (2 at the survey's B = 63, 4 for one radargram of N = 50, 8 at
-// N = 190). Within a CTA all 16 warps compute the group's affinity columns
-// together (each candidate row is read once per group and serves 8
-// queries; a warp's 4 rows x 8 queries partial sums meet in one 31-shuffle
-// reduce-scatter), then warps g and g + 8 run the knn selection passes for
-// query g of the group, each over half of its column, meeting at a named
-// barrier after every pass. The columns (8 x ns*N floats, 162 KB at the
-// survey shape N = 50) sit in dynamic shared memory where they fit, else in
-// a global scratch the wrapper allocates.
+// Design (simple first): the frame loop of prop_cluster.cuh, one
+// thread-block cluster per radargram. Warps g and g + 8 run the knn
+// read-only selection passes for query g of the group, each over half of
+// its column, meeting at a named barrier after every pass, and sum each
+// winner's weighted label as it is found.
 //
 // Bound: the affinity products, 2*ns*N*N*C float32 operations per frame
 // (2.06e11 over the Miguel survey, 3.1 ms at 67 TFLOP/s); the embeddings
@@ -47,55 +26,17 @@
 //
 // Plain C interface, loaded with ctypes (ops/labelprop_cuda.py).
 
-#include <cooperative_groups.h>
-
-#include <cstdint>
-
-#include "prop_common.cuh"
+#include "prop_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using prop::kFull;
+using prop::kClassesPerLane;
+using prop::kGroup;
+using prop::kSplit;
+using prop::kThreads;
 using prop::lex_better;
-
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGroup = 8;                // queries per group
-constexpr int kSplit = kWarps / kGroup;  // warps sharing one query's selection
-constexpr int kRows = 4;                 // candidate rows a warp reads at once
-constexpr int kClassesPerLane = prop::kMaxClasses / 32;
-constexpr int kMaxCluster = 8;  // the portable thread-block cluster size
-static_assert(kRows * kGroup == 32, "one partial sum per lane after the reduce-scatter");
-
-// One butterfly stage: lanes with bit W set keep the upper half of a[0, 2W)
-// and receive their partner's upper half; the others keep the lower half.
-template <int W>
-__device__ __forceinline__ void fold(float (&a)[32], int lane) {
-  const bool upper = (lane & W) != 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = upper ? a[i] : a[i + W];
-    const float keep = upper ? a[i + W] : a[i];
-    a[i] = keep + __shfl_xor_sync(kFull, send, W);
-  }
-}
-
-// a[32] per lane -> lane l returns the sum over the warp of a[l].
-__device__ __forceinline__ float reduce_scatter32(float (&a)[32], int lane) {
-  fold<16>(a, lane);
-  fold<8>(a, lane);
-  fold<4>(a, lane);
-  fold<2>(a, lane);
-  fold<1>(a, lane);
-  return a[0];
-}
-
-// The kSplit warps selecting for group query g meet here (named barrier 1 + g).
-__device__ __forceinline__ void split_sync(int g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(kSplit * 32) : "memory");
-}
 
 template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
@@ -131,95 +72,16 @@ prop_seq_kernel(const float* __restrict__ emb,     // (B, T, N, C)
   for (int t = 1; t < T; ++t) {
     const int ns = L + min(t, cxt);
     const int ncand = ns * N;
-    // the frame each slot holds at step t (-1: not written yet) and its bias;
-    // read only after the __syncthreads() below
-    for (int s = threadIdx.x; s < ns; s += kThreads) {
-      int f;
-      bool valid;
-      if (s < L) {
-        const int fj = long_mem[s];
-        f = fj < t ? fj : -1;
-        valid = t - fj > cxt;
-      } else {
-        const int r = s - L;
-        f = r + cxt * ((t - 1 - r) / cxt);
-        valid = true;
-      }
-      slot_frame[s] = f;
-      slot_bias[s] = valid ? 0.f : prop::kNegInvalid;
-    }
+    prop::slot_table(long_mem, L, cxt, t, ns, slot_frame, slot_bias);
 
     for (int g0 = rank * kGroup; g0 < N; g0 += ncl * kGroup) {
-      for (int x = threadIdx.x; x < kGroup * c_pad; x += kThreads) {
-        const int g = x / c_pad;
-        const int c = x - g * c_pad;
-        const int n = g0 + g;
-        q[x] = (n < N && c < C) ? emb_b[(static_cast<size_t>(t) * N + n) * C + c] : 0.f;
-      }
+      prop::load_queries(emb_b, t, g0, N, C, c_pad, q);
+      __syncthreads();
+      prop::group_columns<kVec4>(emb_b, mask, slot_frame, slot_bias, q, col, col_len, ncand, g0,
+                                 N, C, c_pad, temperature);
       __syncthreads();
 
-      // 1. the group's affinity columns. Rows past the end re-read the last
-      // row and are not stored; an empty slot's row reads as zeros.
-      for (int r0 = warp * kRows; r0 < ncand; r0 += kWarps * kRows) {
-        float acc[32];
-#pragma unroll
-        for (int v = 0; v < 32; ++v) acc[v] = 0.f;
-        const float* rows[kRows];
-#pragma unroll
-        for (int u = 0; u < kRows; ++u) {
-          const int r = min(r0 + u, ncand - 1);
-          const int s = r / N;
-          const int f = slot_frame[s];
-          rows[u] = f >= 0 ? emb_b + (static_cast<size_t>(f) * N + (r - s * N)) * C : nullptr;
-        }
-        if (kVec4) {
-          for (int c4 = lane; c4 < (C >> 2); c4 += 32) {
-            float4 a[kRows];
-#pragma unroll
-            for (int u = 0; u < kRows; ++u) {
-              a[u] = rows[u] != nullptr ? __ldg(reinterpret_cast<const float4*>(rows[u]) + c4)
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
-            }
-#pragma unroll
-            for (int g = 0; g < kGroup; ++g) {
-              const float4 b4 = reinterpret_cast<const float4*>(q + g * c_pad)[c4];
-#pragma unroll
-              for (int u = 0; u < kRows; ++u) {
-                float& s = acc[u * kGroup + g];
-                s = fmaf(a[u].x, b4.x, s);
-                s = fmaf(a[u].y, b4.y, s);
-                s = fmaf(a[u].z, b4.z, s);
-                s = fmaf(a[u].w, b4.w, s);
-              }
-            }
-          }
-        } else {
-          for (int c = lane; c < C; c += 32) {
-            float a[kRows];
-#pragma unroll
-            for (int u = 0; u < kRows; ++u) a[u] = rows[u] != nullptr ? __ldg(rows[u] + c) : 0.f;
-#pragma unroll
-            for (int g = 0; g < kGroup; ++g) {
-              const float bq = q[g * c_pad + c];
-#pragma unroll
-              for (int u = 0; u < kRows; ++u) acc[u * kGroup + g] = fmaf(a[u], bq, acc[u * kGroup + g]);
-            }
-          }
-        }
-        const float dot = reduce_scatter32(acc, lane);
-        const int r = r0 + lane / kGroup;
-        const int g = lane % kGroup;
-        const int n = g0 + g;
-        if (r < ncand && n < N) {
-          const int s = r / N;
-          const int i = r - s * N;
-          col[static_cast<size_t>(g) * col_len + r] =
-              ((dot + mask[static_cast<size_t>(i) * N + n]) + slot_bias[s]) / temperature;
-        }
-      }
-      __syncthreads();
-
-      // 2. warps g, g + 8, ... select the knn winners of query g0 + g, each
+      // warps g, g + 8, ... select the knn winners of query g0 + g, each
       // over its share of the column, lowest candidate first on ties, and
       // sum their weighted labels (lane: classes lane, lane + 32, ...)
       const int g = warp % kGroup;
@@ -248,7 +110,7 @@ prop_seq_kernel(const float* __restrict__ emb,     // (B, T, N, C)
             split_v[k & 1][part][g] = bv;
             split_i[k & 1][part][g] = bi;
           }
-          split_sync(g);
+          prop::split_sync(g);
 #pragma unroll
           for (int h = 0; h < kSplit; ++h) {
             if (lex_better(split_v[k & 1][h][g], split_i[k & 1][h][g], bv, bi)) {
@@ -285,27 +147,13 @@ prop_seq_kernel(const float* __restrict__ emb,     // (B, T, N, C)
   }
 }
 
-size_t dynamic_smem_bytes(int C, int N, int ns_max, bool global_columns) {
-  const size_t c_pad = static_cast<size_t>((C + 3) & ~3);
-  size_t bytes = (kGroup * c_pad + 2 * static_cast<size_t>(ns_max)) * sizeof(float);
-  if (!global_columns) bytes += static_cast<size_t>(kGroup) * ns_max * N * sizeof(float);
-  return bytes;
+// Floats of one CTA's columns (the work area).
+size_t work_floats(int N, int ns_max) {
+  return static_cast<size_t>(kGroup) * ns_max * N;
 }
 
-cudaLaunchConfig_t launch_config(int B, int ncl, size_t dyn, void* stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(B * ncl));
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = dyn;
-  config.stream = static_cast<cudaStream_t>(stream);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(ncl);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return config;
+size_t smem_bytes(int C, int N, int ns_max, bool global_work) {
+  return prop::dynamic_smem_bytes(C, ns_max, global_work ? 0 : work_floats(N, ns_max));
 }
 
 decltype(&prop_seq_kernel<true>) kernel_for(int vec4) {
@@ -318,24 +166,20 @@ extern "C" {
 
 // Dynamic shared memory bytes one CTA may use; above it the wrapper puts
 // the affinity columns in global scratch.
-int prop_seq_max_dynamic_smem(void) {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-      cudaSuccess)
-    return -1;
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, prop_seq_kernel<true>) != cudaSuccess) return -1;
-  return optin - static_cast<int>(attr.sharedSizeBytes);
+int prop_seq_max_dynamic_smem(void) { return prop::max_dynamic_smem(prop_seq_kernel<true>); }
+
+// Dynamic shared memory a launch asks for (columns in shared memory or
+// not). knn is not used: the interface is prop_all's.
+long long prop_seq_smem_bytes(int C, int N, int ns_max, int knn, int global_work) {
+  (void)knn;
+  return static_cast<long long>(smem_bytes(C, N, ns_max, global_work != 0));
 }
 
-// Dynamic shared memory a launch asks for (columns in shared memory or not).
-long long prop_seq_smem_bytes(int C, int N, int ns_max, int global_columns) {
-  return static_cast<long long>(dynamic_smem_bytes(C, N, ns_max, global_columns != 0));
+// Floats of global scratch per CTA when the columns do not fit.
+long long prop_seq_scratch_floats(int N, int ns_max, int knn) {
+  (void)knn;
+  return static_cast<long long>(work_floats(N, ns_max));
 }
-
-int prop_seq_group(void) { return kGroup; }
 
 int prop_seq_max_classes(void) { return prop::kMaxClasses; }
 
@@ -343,33 +187,10 @@ const char* prop_seq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// CTAs per radargram: the largest power of two up to kMaxCluster that has
-// query groups to take, keeps B * ncl within the card's SMs, and that the
-// card can hold as one cluster at this shared-memory size. Returns <= 0 on
-// a CUDA error.
-int prop_seq_cluster_size(int B, int N, int C, int ns_max, int global_columns, int vec4) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return -1;
-  const size_t dyn = dynamic_smem_bytes(C, N, ns_max, global_columns != 0);
-  auto kernel = kernel_for(vec4);
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(dyn)) != cudaSuccess)
-    return -1;
-  const int groups = (N + kGroup - 1) / kGroup;
-  int ncl = 1;
-  while (2 * ncl <= kMaxCluster && 2 * ncl <= groups && B * 2 * ncl <= sms) ncl *= 2;
-  for (; ncl > 1; ncl /= 2) {
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t config = launch_config(B, ncl, dyn, nullptr, &attr);
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &config) == cudaSuccess &&
-        clusters > 0)
-      break;
-    cudaGetLastError();  // a refused size is not an error of the launch
-  }
-  return ncl;
+// CTAs per radargram (prop_cluster.cuh: cluster_size); <= 0 on a CUDA error.
+int prop_seq_cluster_size(int B, int N, int C, int ns_max, int knn, int global_work, int vec4) {
+  (void)knn;
+  return prop::cluster_size(kernel_for(vec4), B, N, smem_bytes(C, N, ns_max, global_work != 0));
 }
 
 // One launch over B radargrams, `ncl` CTAs each (prop_seq_cluster_size), on
@@ -378,17 +199,9 @@ int prop_seq_cluster_size(int B, int N, int C, int ns_max, int global_columns, i
 int prop_seq_launch(const float* emb, const float* mask, const int* long_mem, float* soft,
                     float* gscratch, int B, int T, int N, int C, int M, int L, int cxt,
                     float temperature, int knn, int ns_max, int ncl, int vec4, void* stream) {
-  const size_t dyn = dynamic_smem_bytes(C, N, ns_max, gscratch != nullptr);
-  auto kernel = kernel_for(vec4);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t config = launch_config(B, ncl, dyn, stream, &attr);
-  err = cudaLaunchKernelEx(&config, kernel, emb, mask, long_mem, soft, gscratch, T, N, C, M,
-                           L, cxt, temperature, knn, ns_max);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return prop::launch(kernel_for(vec4), B, ncl, smem_bytes(C, N, ns_max, gscratch != nullptr),
+                      stream, emb, mask, long_mem, soft, gscratch, T, N, C, M, L, cxt,
+                      temperature, knn, ns_max);
 }
 
 }  // extern "C"

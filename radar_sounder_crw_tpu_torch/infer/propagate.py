@@ -14,7 +14,8 @@ over many radargrams (`propagate_batch` on host-staged windows,
 `propagate_survey` on windows gathered on the device from a once-uploaded
 radargram). Steps 2, 3 and 6 run on the pipeline's device. On a GPU, 6
 launches the per-frame CUDA kernel once per frame for one radargram, and
-the whole-sequence CUDA kernel once per survey pass.
+the whole-sequence CUDA kernel once per survey pass (kernel='auto'; a
+named kernel runs on every path).
 
 `bn_train_mode=True` normalizes with batch statistics, as the upstream test
 scripts that never leave train mode do; the running statistics are left
@@ -97,7 +98,9 @@ class PropagationPipeline:
 
     kernel: 'auto' (on a GPU the per-frame CUDA kernel for one radargram
     and the whole-sequence kernel for a survey; the plain path on the CPU),
-    'torch', 'cuda' or 'cuda_seq' (see ops/labelprop.propagate_labels).
+    'torch', 'cuda', 'cuda_seq' or 'cuda_resident' (see
+    ops/labelprop.propagate_labels). A whole-sequence kernel launches once
+    per seed->map, once per reseed and once per survey pass.
     device: default cuda; raises when CUDA is absent, so a CPU run must say
     device='cpu'."""
 

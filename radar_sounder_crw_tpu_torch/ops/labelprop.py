@@ -13,18 +13,24 @@ source nodes held in a ring buffer:
     temperature, then the exact top-knn per query (lowest candidate index on
     ties), a softmax over the winners and the weighted sum of their labels.
 
-The semantics are those of radar_sounder_crw_tpu/ops/labelprop.py. Three
+The semantics are those of radar_sounder_crw_tpu/ops/labelprop.py. Four
 routes compute them for a batch of radargrams (`propagate_labels_batched`;
 `propagate_labels` is its B = 1 view):
 
   * kernel="torch": a Python frame loop over a (B, K, N, C) feature ring and
     a (B, K, N, M) label ring on the device, one plain batched step
-    (`_prop_step_batched`) per frame. It is the CPU path and the twin both
-    CUDA kernels are held against (`propagate_seq_reference`).
+    (`_prop_step_batched`) per frame. It is the CPU path and the twin the
+    `prop_step` and `prop_seq` kernels are held against
+    (`propagate_seq_reference`).
   * kernel="cuda": the same loop, radargram by radargram, with the
     hand-written per-frame kernel `prop_step` (ops/labelprop_cuda.py).
   * kernel="cuda_seq": the hand-written whole-sequence kernel `prop_seq`,
     one launch for all B x (T-1) frames.
+  * kernel="cuda_resident": the hand-written whole-sequence kernel
+    `prop_all`, one launch for the batch, with the weight arithmetic of the
+    TPU's resident kernel (`_prop_all_step_batched`; its twin is
+    `propagate_all_reference`). It equals the other routes up to an ulp of
+    the summation order; 'auto' never picks it.
 
 All walk only the valid slot PREFIX L + min(t, cxt): the slots beyond it
 have not been written yet and carry the NEG_INVALID bias, so their softmax
@@ -92,26 +98,21 @@ def _slot_validity(long_mem, cxt: int, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([(t - pins > cxt), ring], dim=1).float()
 
 
-def _prop_step_batched(feats, query, mask, slot_bias, labels, temperature: float, knn: int,
-                       nslots: int):
-    """One propagation frame for B radargrams in plain PyTorch: the twin of
-    both CUDA kernels.
+def _winners(feats, query, mask, slot_bias, temperature: float, knn: int, nslots: int):
+    """The top-k candidates of one frame for B radargrams: their candidate
+    indices idx (B, N, k) in winner order and e_j = exp(v_j - v_0) (B, N, k),
+    k = min(knn, nslots*N).
 
     feats (B, K, N, C); query (B, N, C); mask (N_src, N_query) additive;
-    slot_bias (K,) additive per slot; labels (B, K, N, M). Only the first
-    `nslots` slots are read. Returns pred (B, N, M).
+    slot_bias (K,) additive per slot. Only the first `nslots` slots are read.
 
     The winners come from a stable descending sort of the flattened
     (nslots*N) candidate axis, which puts the lowest candidate index first
     among equal values, as `lax.top_k` does; `torch.topk` promises no tie
     order. The temperature divides through a device tensor: PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which moves
-    values by an ulp and can flip top-k ties. The softmax-weighted sum runs
-    winner by winner, e_j = exp(v_j - v_0), num += e_j * label_j,
-    den += e_j, pred = num / den: the order and the roundings of the
-    kernels (csrc/prop_common.cuh)."""
+    values by an ulp and can flip top-k ties."""
     B, K, N, C = feats.shape
-    M = labels.shape[-1]
     temp = torch.full((), temperature, dtype=torch.float32, device=feats.device)
     aff = torch.einsum("bknc,bmc->bknm", feats[:, :nslots], query)
     aff = (aff + mask + slot_bias[:nslots, None, None]) / temp
@@ -119,15 +120,70 @@ def _prop_step_batched(feats, query, mask, slot_bias, labels, temperature: float
     k = min(knn, nslots * N)
     vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
     vals, idx = vals[..., :k], idx[..., :k]
-    rows = torch.arange(B, device=feats.device)[:, None, None]
-    src = labels[:, :nslots].reshape(B, nslots * N, M)[rows, idx]  # (B, N, k, M)
-    e = torch.exp(vals - vals[..., :1])
-    num = torch.zeros((B, N, M), dtype=torch.float32, device=feats.device)
+    return idx, torch.exp(vals - vals[..., :1])
+
+
+def _gather_labels(labels, idx, nslots: int):
+    """labels (B, K, N, M) at the candidates idx (B, N, k) -> (B, N, k, M)."""
+    B, _, N, M = labels.shape
+    rows = torch.arange(B, device=labels.device)[:, None, None]
+    return labels[:, :nslots].reshape(B, nslots * N, M)[rows, idx]
+
+
+def _prop_step_batched(feats, query, mask, slot_bias, labels, temperature: float, knn: int,
+                       nslots: int):
+    """One propagation frame for B radargrams in plain PyTorch: the twin of
+    the `prop_step` and `prop_seq` kernels.
+
+    feats (B, K, N, C); query (B, N, C); mask (N_src, N_query) additive;
+    slot_bias (K,) additive per slot; labels (B, K, N, M). Only the first
+    `nslots` slots are read. Returns pred (B, N, M).
+
+    The winners come from `_winners`. The softmax-weighted sum runs winner
+    by winner, e_j = exp(v_j - v_0), num += e_j * label_j, den += e_j,
+    pred = num / den: the order and the roundings of the kernels
+    (csrc/prop_common.cuh)."""
+    B, _, N, _ = feats.shape
+    idx, e = _winners(feats, query, mask, slot_bias, temperature, knn, nslots)
+    src = _gather_labels(labels, idx, nslots)  # (B, N, k, M)
+    num = torch.zeros((B, N, labels.shape[-1]), dtype=torch.float32, device=feats.device)
     den = torch.zeros((B, N, 1), dtype=torch.float32, device=feats.device)
-    for j in range(k):
+    for j in range(idx.shape[-1]):
         num = num + e[..., j, None] * src[..., j, :]
         den = den + e[..., j, None]
     return num / den
+
+
+def _prop_all_step_batched(feats, query, mask, slot_bias, labels, temperature: float, knn: int,
+                           nslots: int):
+    """One propagation frame with the weight arithmetic of the TPU's
+    resident kernel (`_prop_all_kernel`): the twin of the `prop_all` kernel.
+    Arguments and winners as in `_prop_step_batched`.
+
+    Contract, shared bit for bit with csrc/prop_all.cu:
+      * den = sum_j e_j, accumulated in winner order j = 0, 1, ...;
+      * w_j = e_j / den, an IEEE division;
+      * pred = sum_j w_j * label_j over the winners in ASCENDING candidate
+        index (the row order in which the TPU kernel's product labels . W
+        reads them), the product and the sum rounded separately.
+    It differs from `_prop_step_batched`'s (sum e_j * label_j) / den by an
+    ulp or so. Walking only the prefix changes nothing against the TPU
+    kernel's full-ring sweep: the slots past it carry NEG_INVALID, so a
+    winner there (knn above the prefix's candidates) has e_j = 0 exactly
+    and adds +0 to den and to pred."""
+    B, _, N, _ = feats.shape
+    idx, e = _winners(feats, query, mask, slot_bias, temperature, knn, nslots)
+    den = torch.zeros((B, N, 1), dtype=torch.float32, device=feats.device)
+    for j in range(idx.shape[-1]):
+        den = den + e[..., j, None]
+    w = e / den
+    idx, order = torch.sort(idx, dim=-1)  # candidate indices are distinct
+    w = torch.gather(w, -1, order)
+    src = _gather_labels(labels, idx, nslots)  # (B, N, k, M)
+    pred = torch.zeros((B, N, labels.shape[-1]), dtype=torch.float32, device=feats.device)
+    for j in range(idx.shape[-1]):
+        pred = pred + w[..., j, None] * src[..., j, :]
+    return pred
 
 
 def _prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: int, nslots: int):
@@ -173,6 +229,15 @@ def propagate_seq_reference(emb, seeds, mask, long_mem, cxt: int, temperature: f
                        _prop_step_batched)
 
 
+def propagate_all_reference(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: int):
+    """The plain PyTorch twin of the `prop_all` kernel: emb (B, T, N, C),
+    seeds (B, N, M) -> soft (B, T, N, M), frame 0 the seeds; the frame loop
+    of `propagate_seq_reference` with the resident kernel's weight
+    arithmetic (`_prop_all_step_batched`)."""
+    return _frame_loop(emb, seeds, mask, tuple(long_mem), cxt, temperature, knn,
+                       _prop_all_step_batched)
+
+
 def _validate_cfg(cfg: LabelPropConfig, N: int, grid_hw, device):
     """Returns (radius mask (N, N) on `device`, long_mem tuple)."""
     h, w = grid_hw if grid_hw is not None else (N, 1)
@@ -192,13 +257,14 @@ def _validate_cfg(cfg: LabelPropConfig, N: int, grid_hw, device):
     return mask, long_mem
 
 
-KERNELS = ("torch", "cuda", "cuda_seq")
+KERNELS = ("torch", "cuda", "cuda_seq", "cuda_resident")
 
 
 def resolve_kernel(kernel: str, device: torch.device, batched: bool = False) -> str:
     """'auto' -> on a CUDA device 'cuda' (one radargram) or 'cuda_seq' (a
-    batch), on the CPU 'torch'. Names outside KERNELS raise, and so does a
-    CUDA kernel on a CPU device: nothing switches quietly."""
+    batch), on the CPU 'torch'; never 'cuda_resident', which is chosen by
+    name only. Names outside KERNELS raise, and so does a CUDA kernel on a
+    CPU device: nothing switches quietly."""
     if kernel == "auto":
         if device.type != "cuda":
             return "torch"
@@ -221,12 +287,17 @@ def _cuda_step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
 def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kernel: str):
     """soft (B, T, N, M) through the resolved kernel: 'torch' the plain
     batched loop, 'cuda' one prop_step launch per frame, radargram by
-    radargram, 'cuda_seq' one prop_seq launch."""
+    radargram, 'cuda_seq' one prop_seq launch, 'cuda_resident' one prop_all
+    launch."""
     args = (long_mem, cfg.cxt_size, cfg.temperature, knn)
     if kernel == "cuda_seq":
         from .labelprop_cuda import prop_seq
 
         return prop_seq(emb, seeds, mask, *args)
+    if kernel == "cuda_resident":
+        from .labelprop_cuda import prop_all
+
+        return prop_all(emb, seeds, mask, *args)
     if kernel == "cuda":
         return torch.cat([
             _frame_loop(emb[b : b + 1], seeds[b : b + 1], mask, *args, _cuda_step)
@@ -250,8 +321,10 @@ def propagate_labels(
         of patches.
       kernel: 'torch' (plain step), 'cuda' (the per-frame kernel, one launch
         per frame), 'cuda_seq' (the whole-sequence kernel, one launch; the
-        B = 1 view of `propagate_labels_batched`) or 'auto' ('cuda' on a
-        CUDA device, 'torch' on the CPU).
+        B = 1 view of `propagate_labels_batched`), 'cuda_resident' (the
+        whole-sequence kernel with the TPU resident kernel's weight
+        arithmetic, one launch) or 'auto' ('cuda' on a CUDA device, 'torch'
+        on the CPU).
       device: where to run; default cuda (raises when CUDA is absent).
 
     Returns:
@@ -276,13 +349,15 @@ def propagate_labels_batched(
     (B, N, M) -> soft (B, T, N, M), pred (B, T, N).
 
     kernel: as in `propagate_labels`, except that 'auto' is 'cuda_seq' on a
-    CUDA device: one launch of the whole-sequence kernel for the batch.
+    CUDA device: one launch of the whole-sequence kernel for the batch
+    ('cuda_resident' likewise launches `prop_all` once for the batch).
     'cuda' runs the per-frame kernel radargram by radargram.
 
     batch_block: when set, the batch runs in chunks of this size (one
-    launch per chunk under 'cuda_seq'), bounding the working set; a
-    trailing partial chunk is padded with the first radargram and its
-    outputs are dropped. The results equal the unchunked call."""
+    launch per chunk under 'cuda_seq' and 'cuda_resident'), bounding the
+    working set; a trailing partial chunk is padded with the first
+    radargram and its outputs are dropped. The results equal the unchunked
+    call."""
     device = resolve_device(device)
     kernel = resolve_kernel(kernel, device, batched=True)
     emb = torch.as_tensor(emb, dtype=torch.float32, device=device).contiguous()

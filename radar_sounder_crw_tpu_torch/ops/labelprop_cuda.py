@@ -4,7 +4,11 @@
     `_prop_step_kernel`: one frame for all N queries.
   * `prop_seq` (csrc/prop_seq.cu) replaces `_prop_seq_v2_kernel`: the
     whole (B, T-1) propagation of a batch of radargrams in one launch.
-(both in radar_sounder_crw_tpu/ops/labelprop_pallas.py)
+  * `prop_all` (csrc/prop_all.cu) replaces `_prop_all_kernel`: the same
+    launch with the resident kernel's marking selection and weight
+    arithmetic.
+(all in radar_sounder_crw_tpu/ops/labelprop_pallas.py; the two
+whole-sequence kernels share csrc/prop_cluster.cuh and one C interface)
 
 Each source is compiled at first use with its own `nvcc` for sm_90a (all
 sources at once) into a shared library with a plain C interface, under
@@ -13,9 +17,9 @@ keyed by the hash of the sources and flags is reused. A failed build or
 launch raises: nothing falls back to the plain version on a CUDA tensor.
 
 On CPU tensors each wrapper runs its plain PyTorch twin
-(`ops/labelprop._prop_step`, `ops/labelprop.propagate_seq_reference`); on
-CUDA tensors it launches the kernel. `launches[name]` counts each kernel's
-launches.
+(`ops/labelprop._prop_step`, `propagate_seq_reference`,
+`propagate_all_reference`); on CUDA tensors it launches the kernel.
+`launches[name]` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -30,18 +34,18 @@ from pathlib import Path
 import torch
 
 from .labelprop import _prop_step as prop_step_reference
-from .labelprop import propagate_seq_reference
+from .labelprop import propagate_all_reference, propagate_seq_reference
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {"prop_step": CSRC / "prop_step.cu", "prop_seq": CSRC / "prop_seq.cu"}
-HEADERS = (CSRC / "prop_common.cuh",)
+SOURCES = {name: CSRC / f"{name}.cu" for name in ("prop_step", "prop_seq", "prop_all")}
+HEADERS = (CSRC / "prop_common.cuh", CSRC / "prop_cluster.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-launches = {"prop_step": 0, "prop_seq": 0}
+launches = {name: 0 for name in SOURCES}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -95,12 +99,13 @@ def _library(name: str) -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "prop_step":
             lib.prop_step_launch.argtypes = [p] * 7 + [i, i, i, ctypes.c_float, i, i, p]
-        else:
-            lib.prop_seq_launch.argtypes = [p] * 5 + [i] * 7 + [ctypes.c_float] + [i] * 4 + [p]
-            lib.prop_seq_cluster_size.argtypes = [i] * 6
-            lib.prop_seq_cluster_size.restype = i
-            lib.prop_seq_smem_bytes.argtypes = [i, i, i, i]
-            lib.prop_seq_smem_bytes.restype = ctypes.c_longlong
+        else:  # the whole-sequence kernels share one interface
+            getattr(lib, f"{name}_launch").argtypes = (
+                [p] * 5 + [i] * 7 + [ctypes.c_float] + [i] * 4 + [p])
+            for fn, nargs, res in (("cluster_size", 7, i), ("smem_bytes", 5, ctypes.c_longlong),
+                                   ("scratch_floats", 3, ctypes.c_longlong)):
+                getattr(lib, f"{name}_{fn}").argtypes = [i] * nargs
+                getattr(lib, f"{name}_{fn}").restype = res
         getattr(lib, f"{name}_launch").restype = i
         for fn in ("max_dynamic_smem", "max_classes"):
             getattr(lib, f"{name}_{fn}").argtypes = []
@@ -186,21 +191,18 @@ def prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: in
     return pred
 
 
-def prop_seq(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
-    """The whole propagation of a batch of radargrams: emb (B, T, N, C)
-    L2-normalized, seeds (B, N, M), mask (N, N) -> soft (B, T, N, M), frame 0
-    the seeds. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel once (none when T == 1)."""
-    if emb.device.type == "cpu":
-        return propagate_seq_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
+def _whole_sequence(name: str, emb, seeds, mask, long_mem: tuple, cxt: int,
+                    temperature: float, knn: int):
+    """One launch of the whole-sequence kernel `name` ('prop_seq' or
+    'prop_all') on CUDA tensors; see `prop_seq`."""
     B, T, N, C = emb.shape
     M = seeds.shape[-1]
     dev = emb.device
     _check("emb", emb, (B, T, N, C), dev)
     _check("seeds", seeds, (B, N, M), dev)
     _check("mask", mask, (N, N), dev)
-    lib = _library("prop_seq")
-    _check_common(lib, "prop_seq", knn, M)
+    lib = _library(name)
+    _check_common(lib, name, knn, M)
     if cxt < 1:
         raise ValueError(f"cxt must be >= 1, got {cxt}")
     soft = torch.empty((B, T, N, M), dtype=torch.float32, device=dev)
@@ -212,24 +214,50 @@ def prop_seq(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, kn
     # a non-empty array, so the kernel always gets a valid pointer
     pins = torch.tensor(list(long_mem) or [0], dtype=torch.int32, device=dev)
     vec4 = int(C % 4 == 0 and emb.data_ptr() % 16 == 0)
+
+    def fn(f, *args):
+        return getattr(lib, f"{name}_{f}")(*args)
+
     with torch.cuda.device(dev):
-        in_smem = lib.prop_seq_smem_bytes(C, N, ns_max, 0) <= _smem_limit(lib, "prop_seq")
+        in_smem = fn("smem_bytes", C, N, ns_max, knn, 0) <= _smem_limit(lib, name)
         # CTAs per radargram (a thread-block cluster), from B, N and the card
-        ncl = lib.prop_seq_cluster_size(B, N, C, ns_max, int(not in_smem), vec4)
+        ncl = fn("cluster_size", B, N, C, ns_max, knn, int(not in_smem), vec4)
         if ncl < 1:
-            raise RuntimeError("prop_seq: cannot size the launch's clusters")
+            raise RuntimeError(f"{name}: cannot size the launch's clusters")
+        # the affinity columns (and prop_all's winner lists) live in shared
+        # memory when they fit, else in this scratch, one area per CTA
         gscratch = (
             None if in_smem
-            else torch.empty((B * ncl, lib.prop_seq_group(), ns_max * N), dtype=torch.float32,
-                             device=dev)
+            else torch.empty((B * ncl, fn("scratch_floats", N, ns_max, knn)),
+                             dtype=torch.float32, device=dev)
         )
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prop_seq_launch(
-            emb.data_ptr(), mask.data_ptr(), pins.data_ptr(), soft.data_ptr(),
+        err = fn(
+            "launch", emb.data_ptr(), mask.data_ptr(), pins.data_ptr(), soft.data_ptr(),
             None if gscratch is None else gscratch.data_ptr(),
             B, T, N, C, M, L, int(cxt), float(temperature), int(knn), ns_max, ncl, vec4,
             stream,
         )
-    _raise_on(lib, "prop_seq", err)
-    launches["prop_seq"] += 1
+    _raise_on(lib, name, err)
+    launches[name] += 1
     return soft
+
+
+def prop_seq(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """The whole propagation of a batch of radargrams: emb (B, T, N, C)
+    L2-normalized, seeds (B, N, M), mask (N, N) -> soft (B, T, N, M), frame 0
+    the seeds. CPU tensors take the plain twin; CUDA tensors launch the
+    kernel once (none when T == 1)."""
+    if emb.device.type == "cpu":
+        return propagate_seq_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
+    return _whole_sequence("prop_seq", emb, seeds, mask, long_mem, cxt, temperature, knn)
+
+
+def prop_all(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """`prop_seq` with the weight arithmetic of the TPU resident kernel
+    (ops/labelprop._prop_all_step_batched): same arguments and result.
+    CPU tensors take the plain twin `propagate_all_reference`; CUDA tensors
+    launch the kernel once (none when T == 1)."""
+    if emb.device.type == "cpu":
+        return propagate_all_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
+    return _whole_sequence("prop_all", emb, seeds, mask, long_mem, cxt, temperature, knn)

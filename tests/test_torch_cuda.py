@@ -7,9 +7,10 @@ one. The file imports no JAX, so on a machine without it run:
 
 Tolerance: pred to atol 1e-4 (a convex mix of labels in [0, 1]; the kernel
 and cuBLAS sum the dot products in other orders), argmax exactly equal. The
-whole-sequence kernel runs on embeddings on a 2**-5 grid, so every dot
+whole-sequence kernels run on embeddings on a 2**-5 grid, so every dot
 product is exact in any summation order and a near-tie cannot send the two
-sides' selections apart over a hundred frames.
+sides' selections apart over a hundred frames; there `prop_all` equals its
+twin bit for bit.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from radar_sounder_crw_tpu_torch.ops.labelprop import (
     LabelPropConfig,
     _prop_step,
     propagate_labels,
+    propagate_all_reference,
     propagate_labels_batched,
     propagate_seq_reference,
     radius_mask,
@@ -162,3 +164,67 @@ def test_cuda_seq_refuses_cpu_tensors_and_devices(cuda):
     mask = torch.zeros((4, 4), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         labelprop_cuda.prop_seq(e, s.cpu(), mask, (0,), 2, 0.1, 2)
+
+
+@pytest.mark.parametrize(
+    "B,T,N,C,M,cxt,radius,temp,knn,long_mem,ties",
+    [
+        (3, 12, 10, 8, 3, 4, 3, 0.07, 3, (0, 2), False),  # pins and a wrapping ring
+        (2, 9, 12, 8, 4, 4, 3, 0.07, 5, (), False),  # no pins
+        (2, 6, 5, 8, 3, 2, 3, 0.07, 40, (0,), False),  # knn above the candidate count
+        (2, 10, 24, 32, 4, 6, 5, 0.1, 70, (0,), False),  # more winners than a warp's lanes
+        (2, 8, 16, 16, 40, 4, 4, 0.1, 5, (0,), False),  # more classes than a warp's lanes
+        (2, 10, 24, 32, 4, 6, 5, 0.1, 6, (0, 3), True),  # dyadic ties
+        (2, 12, 40, 7, 3, 20, 9, 0.05, 20, (0,), False),  # C not a multiple of 4
+        (2, 40, 190, 128, 6, 100, 60, 0.01, 20, (0,), False),  # work area in global scratch
+    ],
+)
+def test_resident_kernel_equals_its_twin(cuda, B, T, N, C, M, cxt, radius, temp, knn, long_mem,
+                                         ties):
+    emb, seeds = _seq_inputs(B, T, N, C, M, 2, cuda)
+    if ties:  # dyadic halves: many exactly equal affinities
+        emb = torch.round(emb * 4) / 2
+    mask = torch.as_tensor(radius_mask(N, 1, radius), device=cuda)
+    before = labelprop_cuda.launches["prop_all"]
+    got = labelprop_cuda.prop_all(emb, seeds, mask, long_mem, cxt, temp, knn)
+    want = propagate_all_reference(emb, seeds, mask, long_mem, cxt, temp, knn)
+    torch.cuda.synchronize()
+    assert labelprop_cuda.launches["prop_all"] == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_resident_kernel_single_frame_and_bad_inputs(cuda):
+    emb, seeds = _seq_inputs(2, 1, 6, 8, 3, 1, cuda)
+    mask = torch.as_tensor(radius_mask(6, 1, 3), device=cuda)
+    before = labelprop_cuda.launches["prop_all"]
+    soft = labelprop_cuda.prop_all(emb, seeds, mask, (0,), 4, 0.1, 3)
+    assert labelprop_cuda.launches["prop_all"] == before
+    assert torch.equal(soft[:, 0], seeds)
+    emb, seeds = _seq_inputs(2, 4, 6, 8, 3, 1, cuda)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        labelprop_cuda.prop_all(emb.double(), seeds, mask, (0,), 4, 0.1, 3)
+    with pytest.raises(ValueError, match="class count"):
+        labelprop_cuda.prop_all(emb, torch.zeros((2, 6, 200), device=cuda), mask, (0,), 4, 0.1, 3)
+    with pytest.raises(ValueError, match="knn"):
+        labelprop_cuda.prop_all(emb, seeds, mask, (0,), 4, 0.1, 0)
+    assert labelprop_cuda.launches["prop_all"] == before
+
+
+def test_cuda_resident_route_agrees_with_cuda(cuda):
+    """Both routes select the same winners (the affinities do not depend on
+    the labels); their weighted sums differ by an ulp of summation order."""
+    emb, seeds = _seq_inputs(1, 30, 40, 32, 4, 3, cuda)
+    cfg = LabelPropConfig(cxt_size=8, radius=6, temperature=0.07, knn=5, long_mem=(0, 3))
+    before = labelprop_cuda.launches["prop_all"]
+    soft_r, pred_r = propagate_labels(emb[0], seeds[0], cfg, kernel="cuda_resident")
+    assert labelprop_cuda.launches["prop_all"] == before + 1
+    soft_c, pred_c = propagate_labels(emb[0], seeds[0], cfg, kernel="cuda")
+    assert (soft_r - soft_c).abs().max().item() <= 1e-5
+    assert (pred_r == pred_c).float().mean().item() >= 0.995
+    # batched: one launch for the stack, or one per batch_block chunk
+    emb, seeds = _seq_inputs(3, 12, 10, 8, 3, 4, cuda)
+    soft, _ = propagate_labels_batched(emb, seeds, cfg, kernel="cuda_resident")
+    chunked, _ = propagate_labels_batched(emb, seeds, cfg, kernel="cuda_resident", batch_block=2)
+    assert labelprop_cuda.launches["prop_all"] == before + 4
+    assert torch.equal(soft, chunked)
