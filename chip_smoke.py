@@ -4,25 +4,30 @@
 
 Phases, one line each, any failure exits non-zero:
   1. build the three CUDA propagation kernels, csrc/prop_step.cu,
-     csrc/prop_seq.cu and csrc/prop_all.cu (sm_90a, one nvcc each, started
-     together);
+     csrc/prop_seq.cu (both on the tile core csrc/prop_tile.cuh) and
+     csrc/prop_all.cu (sm_90a, one nvcc each, started together);
   2. hold prop_step against its plain PyTorch twin at MC3 and SHARAD step
-     shapes, a tie-heavy case, a valid prefix nslots < K, knn above the
-     candidate count, an odd channel count and the global-scratch path:
-     pred to 1e-4 absolute, argmax exactly equal;
+     shapes, the MC3 prefixes of frames t = 1, 2, 37 and 100, a tie-heavy
+     case (bit for bit), knn above the candidate count, an odd channel
+     count and N = 400 (seven query tiles): pred to 1e-4 absolute, argmax
+     exactly equal; then its first step's chunk lists against the twin's
+     (`_chunk_lists`) on the tie-heavy case, exactly;
   3. MC3 seed->map at full width (ResNet-10 float32, TF32 off) on a
      synthetic 410 x 3200 radargram, one 32x32 window with overlap (30, 0):
      T = 100 frames of N = 190 nodes, seeded from the first 32 columns,
      change detection on, then one reseed at frame 40; the CUDA kernel path
      against the plain path: >= 99.5 % equal maps, equal change_idx;
   4. times on the card: encode, propagate, seed->map and reseed wall ms,
-     the kernel per launch and per seed->map, the plain step, and one
-     torch.matmul of the same affinity product as a yardstick;
+     the kernel per launch and per seed->map (CUDA events), split into its
+     tile and merge steps, with the share of the bound, the plain step,
+     and one torch.matmul of the same affinity product as a yardstick;
   5. hold prop_seq against its plain twin (the batched frame loop) at the
      Miguel survey shape (B = 63, T = 100, N = 50), at MC3 width (N = 190),
      on a wrapping ring with pins, with knn above the candidate count, on
      tie-heavy dyadic values, and at T = 1 (no launch): soft to 1e-4
-     absolute, argmax exactly equal; then cuda_seq (B = 1) against the
+     absolute, argmax exactly equal (bit for bit on the grid and dyadic
+     cases); phase A's winner lists against `_winners_all_frames` on the
+     tie-heavy case, exactly; then cuda_seq (B = 1) against the
      per-frame cuda path on the MC3 window: >= 99.5 % equal maps;
   6. hold prop_all bit for bit against its plain twin
      (propagate_all_reference) at the same shapes plus an empty long_mem,
@@ -43,8 +48,10 @@ Phases, one line each, any failure exits non-zero:
      kernel="cuda_resident": one prop_all launch each, >= 99.5 % equal maps
      with cuda_seq;
   8. survey times: wall ms and radargrams/s (median of 5), the encode of
-     the 315,000 patches, prop_seq and prop_all per launch against their
-     bound (prop_all also at MC3, B = 1), the plain twins, the plain and the
+     the 315,000 patches, prop_seq per launch split into phase A (every
+     frame's winners) and phase B (the label chain), and prop_all per
+     launch, against their bound (prop_all also at MC3, B = 1), the plain
+     twins, the plain and the
      per-frame-kernel survey propagation, a batched torch.bmm of the
      saturated affinity product as a yardstick, and the device's busy time
      by kernel over one survey call (torch.profiler);
@@ -364,6 +371,11 @@ def survey_phase(smi):
     knn, C = cfg.knn, emb.shape[-1]
     args = (emb, seeds, mask, (0,), cfg.cxt_size, cfg.temperature, knn)
     kernel_ms = cuda_ms(lambda: labelprop_cuda.prop_seq(*args), iters=5, warmup=1)
+    # its two phases apart: every frame's winners, then the label chain
+    select_args = (emb, mask, (0,), cfg.cxt_size, cfg.temperature, knn)
+    phase_a_ms = cuda_ms(lambda: labelprop_cuda.prop_seq_select(*select_args), iters=5, warmup=1)
+    lists = labelprop_cuda.prop_seq_select(*select_args)
+    phase_b_ms = cuda_ms(lambda: labelprop_cuda.prop_seq_chain(*lists, seeds), iters=5, warmup=1)
     plain_ms = cuda_ms(lambda: propagate_seq_reference(*args), iters=2, warmup=1)
     resident_ms = cuda_ms(lambda: labelprop_cuda.prop_all(*args), iters=5, warmup=1)
     resident_plain_ms = cuda_ms(lambda: propagate_all_reference(*args), iters=2, warmup=1)
@@ -376,7 +388,11 @@ def survey_phase(smi):
         "survey_ms": wall_ms(lambda: pipe.propagate_survey(ds, ids, refs)),
         "encode_ms": wall_ms(lambda: pipe.encode(seqs.reshape(R * T, N, *patch))),
         "prop_seq_ms_per_launch": kernel_ms,
+        "prop_seq_phase_a_ms": phase_a_ms,
+        "prop_seq_phase_b_ms": phase_b_ms,
         "prop_seq_bound_ms": bound_ms,
+        "prop_seq_bound_share": bound_ms / kernel_ms,
+        "prop_seq_phase_a_bound_share": bound_ms / phase_a_ms,
         "plain_propagation_ms": wall_ms(
             lambda: propagate_labels_batched(emb, seeds, cfg, kernel="torch"), reps=3),
         "cuda_per_frame_propagation_ms": wall_ms(
@@ -385,6 +401,7 @@ def survey_phase(smi):
             lambda: propagate_labels_batched(emb, seeds, cfg, kernel="cuda_seq")),
         "plain_twin_ms": plain_ms,
         "prop_all_ms_per_launch": resident_ms,
+        "prop_all_bound_share": bound_ms / resident_ms,
         "prop_all_plain_twin_ms": resident_plain_ms,
         "survey_resident_ms": wall_ms(lambda: resident.propagate_survey(ds, ids, refs)),
         "affinity_bmm_ms": bmm_ms,
@@ -417,6 +434,8 @@ def main() -> int:
     from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
     from radar_sounder_crw_tpu_torch.ops.labelprop import (
         LabelPropConfig,
+        _affinity,
+        _chunk_lists,
         _prop_step,
         propagate_labels,
     )
@@ -444,7 +463,10 @@ def main() -> int:
         ("sharad_ties", 101, 113, 128, 5, 20, 10, 0.1, 64, True),
         ("knn_over_candidates", 4, 5, 8, 3, 30, 3, 0.07, 2, False),
         ("odd_channels", 7, 30, 7, 4, 9, 5, 0.07, 7, False),
-        ("global_scratch", 160, 400, 64, 4, 20, 30, 0.05, 160, False),
+        ("n400", 160, 400, 64, 4, 20, 30, 0.05, 160, False),
+        ("mc3_t1", 101, 190, 128, 6, 20, 60, 0.01, 2, False),
+        ("mc3_t2", 101, 190, 128, 6, 20, 60, 0.01, 3, False),
+        ("mc3_t37", 101, 190, 128, 6, 20, 60, 0.01, 38, False),
     ]
     mc3_err = 0.0
     for i, (name, K, N, C, M, knn, radius, temp, nslots, ties) in enumerate(cases):
@@ -454,12 +476,27 @@ def main() -> int:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         same_argmax = torch.equal(got.argmax(-1), want.argmax(-1))
+        bitwise = torch.equal(got, want)
         phase("kernel_vs_plain", f"{name} K={K} N={N} C={C} M={M} knn={knn} "
-              f"nslots={nslots}: max_abs_err={err:.3e} argmax_equal={same_argmax}")
-        if not (torch.isfinite(got).all() and err <= STEP_ATOL and same_argmax):
+              f"nslots={nslots}: max_abs_err={err:.3e} argmax_equal={same_argmax} "
+              f"bitwise={bitwise}")
+        if not (torch.isfinite(got).all() and err <= STEP_ATOL and same_argmax
+                and (bitwise or not ties)):
             raise SystemExit(f"kernel disagrees with the plain step on {name}")
         if name.startswith("mc3"):
             mc3_err = max(mc3_err, err)
+        if ties:  # step 1 alone: the chunk lists, exactly
+            rows = labelprop_cuda.step_chunk_rows(N, knn, nslots, "cuda")
+            vals, idx = labelprop_cuda.prop_step_tiles(feats, query, mask, bias, temp, knn,
+                                                       nslots, rows)
+            flat = _affinity(feats[None], query[None], mask, bias, temp, nslots)
+            want_v, want_i = _chunk_lists(flat, knn, rows)
+            lists_equal = (torch.equal(vals, want_v[0])
+                           and torch.equal(idx.long(), want_i[0]))
+            phase("kernel_vs_plain", f"{name}: step 1 chunk lists ({vals.shape[1]} chunks of "
+                  f"{rows} candidates) equal to the twin's: {lists_equal}")
+            if not lists_equal:
+                raise SystemExit(f"prop_step's chunk lists differ from the twin's on {name}")
 
     # 3. MC3 seed->map at full width ----------------------------------------
     T, hw, overlap, nclasses = 100, (32, 32), (30, 0), 6
@@ -551,11 +588,25 @@ def main() -> int:
     path_kernel_ms = cuda_ms(path_launches, iters=3, warmup=1)
     path_ops = sum(step_flops_bytes(K, N, C, M, knn, ns)[0] for ns in nslots_path)
     path_bound_ms = path_ops / PEAK_F32_FLOPS * 1e3
+
+    # the first step (block top-k lists) alone; the merge is the difference
+    def tiles(ns):
+        labelprop_cuda.prop_step_tiles(feats, query, mask, bias, 0.01, knn, ns,
+                                       labelprop_cuda.step_chunk_rows(N, knn, ns, "cuda"))
+
+    tile_ms = cuda_ms(lambda: tiles(K), iters=50)
+    path_tile_ms = cuda_ms(lambda: [tiles(ns) for ns in nslots_path], iters=3, warmup=1)
     times.update({
         "kernel_ms_per_launch": kernel_ms,
+        "kernel_tile_ms_per_launch": tile_ms,
+        "kernel_merge_ms_per_launch": kernel_ms - tile_ms,
+        "kernel_bound_share": bound_ms / kernel_ms,
         "kernel_us_per_frame_on_path": path_kernel_ms / len(nslots_path) * 1e3,
         "kernel_ms_per_seed_to_map": path_kernel_ms,
+        "kernel_tile_ms_per_seed_to_map": path_tile_ms,
+        "kernel_merge_ms_per_seed_to_map": path_kernel_ms - path_tile_ms,
         "kernel_bound_ms_per_seed_to_map": path_bound_ms,
+        "kernel_bound_share_per_seed_to_map": path_bound_ms / path_kernel_ms,
         "plain_step_ms": plain_ms,
         "affinity_matmul_ms": matmul_ms,
     })
@@ -563,7 +614,11 @@ def main() -> int:
           + f" | path GFLOP={path_ops / 1e9:.2f}")
 
     # 5. prop_seq vs its plain twin ------------------------------------------
-    from radar_sounder_crw_tpu_torch.ops.labelprop import propagate_seq_reference, radius_mask
+    from radar_sounder_crw_tpu_torch.ops.labelprop import (
+        _winners_all_frames,
+        propagate_seq_reference,
+        radius_mask,
+    )
 
     seq_cases = [
         # name, B, T, N, C, M, cxt, radius, temperature, knn, long_mem, ties
@@ -589,11 +644,22 @@ def main() -> int:
         phase("seq_vs_plain", f"{name} B={B} T={Ts} N={Ns} C={Cs} M={Ms} cxt={cxt} "
               f"knn={knn_s} long_mem={lm}: max_abs_err={err:.3e} argmax_equal={same_argmax} "
               f"bitwise={torch.equal(got, want)} launches={n_launch}")
+        # grid or dyadic values: every product is exact, the results equal bit for bit
         if not (torch.isfinite(got).all() and err <= STEP_ATOL and same_argmax
-                and n_launch == (1 if Ts > 1 else 0)):
+                and n_launch == (1 if Ts > 1 else 0) and torch.equal(got, want)):
             raise SystemExit(f"prop_seq disagrees with its plain twin on {name}")
         if name == "survey":
             seq_err = err
+        if ties:  # phase A alone: every frame's winner lists, exactly
+            src, e_got = labelprop_cuda.prop_seq_select(e, m, lm, cxt, temp, knn_s)
+            f_got, i_got = labelprop_cuda.unpack_sources(src.long(), Ns)
+            f_want, i_want, e_want = _winners_all_frames(e, m, lm, cxt, temp, knn_s)
+            lists_equal = (torch.equal(f_got, f_want) and torch.equal(i_got, i_want)
+                           and torch.equal(e_got, e_want))
+            phase("seq_vs_plain", f"{name}: phase A lists {tuple(src.shape)} equal to "
+                  f"_winners_all_frames: {lists_equal}")
+            if not lists_equal:
+                raise SystemExit(f"prop_seq's phase A lists differ from the twin's on {name}")
     soft_seq, pred_seq = propagate_labels(emb, seed_np, cfg, kernel="cuda_seq")
     soft_frame, pred_frame = propagate_labels(emb, seed_np, cfg, kernel="cuda")
     agree_seq = float((pred_seq == pred_frame).float().mean())
@@ -697,6 +763,10 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "affinity_matmul_ms": matmul_ms,
+        "tile_ms": times["kernel_tile_ms_per_launch"],
+        "merge_ms": times["kernel_merge_ms_per_launch"],
+        "ms_per_seed_to_map": times["kernel_ms_per_seed_to_map"],
+        "bound_ms_per_seed_to_map": times["kernel_bound_ms_per_seed_to_map"],
     }, {
         "name": "prop_seq",
         "route": "cuda",
@@ -710,6 +780,8 @@ def main() -> int:
         "bound_by": seq_bound_by,
         "library_ms": None,
         "affinity_bmm_ms": survey_times["affinity_bmm_ms"],
+        "phase_a_ms": survey_times["prop_seq_phase_a_ms"],
+        "phase_b_ms": survey_times["prop_seq_phase_b_ms"],
     }, {
         "name": "prop_all",
         "route": "cuda",

@@ -1,5 +1,6 @@
-// The frame loop shared by the two whole-sequence kernels, prop_seq.cu and
-// prop_all.cu: one thread-block cluster per radargram, frames in order.
+// The frame loop of the whole-sequence kernel prop_all.cu, its only user
+// (prop_seq.cu split its chain into two phases on prop_tile.cuh): one
+// thread-block cluster per radargram, frames in order.
 //
 // For radargram b and frame t = 1..T-1, over the valid slot prefix
 // ns = L + min(t, cxt) (L = len(long_mem)):

@@ -1,9 +1,10 @@
-// Pieces shared by the two propagation kernels (prop_step.cu, prop_seq.cu).
+// Pieces shared by the propagation kernels (prop_step.cu, prop_seq.cu,
+// prop_all.cu and their headers prop_tile.cuh, prop_cluster.cuh).
 //
 // Winner order: candidates compare by (value descending, index ascending),
-// the order of `lax.top_k` and of a stable descending sort. The knn winners
-// are found by read-only passes under the lexicographic threshold of the
-// previous winner, so nothing is marked or moved.
+// the order of `lax.top_k` and of a stable descending sort. prop_step and
+// prop_seq keep a running list of the knn best per query (prop_tile.cuh);
+// prop_all runs knn passes that mark each winner.
 //
 // Softmax-weighted label sum, in winner order j = 0, 1, ...:
 //   e_j = exp(v_j - v_0);  num += e_j * label_j;  den += e_j;  pred = num / den
@@ -24,11 +25,6 @@ constexpr float kNegInvalid = -1e12f;  // ops/labelprop.py NEG_INVALID
 
 __device__ __forceinline__ bool lex_better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
-}
-
-// Still eligible after the winner (v_last, i_last) was taken.
-__device__ __forceinline__ bool after(float a, int r, float v_last, int i_last) {
-  return a < v_last || (a == v_last && r > i_last);
 }
 
 // Lexicographic best across a warp; every lane ends with the result.

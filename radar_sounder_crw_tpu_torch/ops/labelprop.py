@@ -32,6 +32,12 @@ routes compute them for a batch of radargrams (`propagate_labels_batched`;
     `propagate_all_reference`). It equals the other routes up to an ulp of
     the summation order; 'auto' never picks it.
 
+The kernels split the work in ways the plain loop does not, and each split
+has its plain twin here, equal to the loop bit for bit on exact inputs:
+`_winners_chunked` (prop_step's block top-k lists over candidate chunks and
+their merge) and `_winners_all_frames` + `_label_chain` (prop_seq's every
+frame's winners from the embeddings alone, then the label chain).
+
 All walk only the valid slot PREFIX L + min(t, cxt): the slots beyond it
 have not been written yet and carry the NEG_INVALID bias, so their softmax
 weight is exactly 0 and skipping them changes no output.
@@ -112,14 +118,55 @@ def _winners(feats, query, mask, slot_bias, temperature: float, knn: int, nslots
     order. The temperature divides through a device tensor: PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which moves
     values by an ulp and can flip top-k ties."""
+    flat = _affinity(feats, query, mask, slot_bias, temperature, nslots)
+    k = min(knn, flat.shape[-1])
+    vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    return idx, torch.exp(vals - vals[..., :1])
+
+
+def _affinity(feats, query, mask, slot_bias, temperature: float, nslots: int):
+    """The masked, biased, tempered affinity of `_winners`: (B, N_query,
+    nslots*N) over the candidates r = s*N + i."""
     B, K, N, C = feats.shape
     temp = torch.full((), temperature, dtype=torch.float32, device=feats.device)
     aff = torch.einsum("bknc,bmc->bknm", feats[:, :nslots], query)
     aff = (aff + mask + slot_bias[:nslots, None, None]) / temp
-    flat = aff.reshape(B, nslots * N, N).transpose(1, 2)  # (B, N_query, candidates)
-    k = min(knn, nslots * N)
-    vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
-    vals, idx = vals[..., :k], idx[..., :k]
+    return aff.reshape(B, nslots * N, N).transpose(1, 2)
+
+
+def _chunk_lists(flat, knn: int, chunk: int):
+    """The block top-k of the `prop_step` kernel's first step: for each run
+    of `chunk` candidates of flat (B, N_query, candidates), its knn best
+    (value, index) in winner order -> (B, N_query, n_chunks, knn) each,
+    padded with (-inf, INT32_MAX) where a chunk holds fewer than knn."""
+    B, Nq, ncand = flat.shape
+    n_chunks = -(-ncand // chunk)
+    vals = torch.full((B, Nq, n_chunks, knn), -torch.inf, dtype=flat.dtype, device=flat.device)
+    idx = torch.full((B, Nq, n_chunks, knn), torch.iinfo(torch.int32).max, dtype=torch.int64,
+                     device=flat.device)
+    for c in range(n_chunks):
+        v, i = torch.sort(flat[..., c * chunk : (c + 1) * chunk], dim=-1, descending=True,
+                          stable=True)
+        k = min(knn, v.shape[-1])
+        vals[:, :, c, :k] = v[..., :k]
+        idx[:, :, c, :k] = i[..., :k] + c * chunk
+    return vals, idx
+
+
+def _winners_chunked(feats, query, mask, slot_bias, temperature: float, knn: int, nslots: int,
+                     chunk: int):
+    """`_winners` as the `prop_step` kernel finds them: each chunk's top-knn
+    (`_chunk_lists`), then a lexicographic merge of the chunk lists. A
+    stable descending sort of the lists in chunk order is that merge: the
+    chunks are in candidate order and each list is in winner order. Equals
+    `_winners` exactly, indices and weights."""
+    flat = _affinity(feats, query, mask, slot_bias, temperature, nslots)
+    vals, idx = _chunk_lists(flat, knn, chunk)
+    vals, idx = vals.flatten(-2), idx.flatten(-2)
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    k = min(knn, flat.shape[-1])
+    vals, idx = vals[..., :k], torch.gather(idx, -1, order)[..., :k]
     return idx, torch.exp(vals - vals[..., :1])
 
 
@@ -227,6 +274,70 @@ def propagate_seq_reference(emb, seeds, mask, long_mem, cxt: int, temperature: f
     (B, K, N, M) label ring."""
     return _frame_loop(emb, seeds, mask, tuple(long_mem), cxt, temperature, knn,
                        _prop_step_batched)
+
+
+def _slot_frames(long_mem, cxt: int, t: int, nslots: int) -> list[int]:
+    """The frame each of the first `nslots` ring slots holds while frame t
+    is predicted (-1: a pin not written yet)."""
+    pins = [fj if fj < t else -1 for fj in long_mem]
+    return (pins + [r + cxt * ((t - 1 - r) // cxt) for r in range(min(t, cxt))])[:nslots]
+
+
+def _winners_all_frames(emb, mask, long_mem, cxt: int, temperature: float, knn: int):
+    """Phase A of the `prop_seq` kernel in plain PyTorch: every frame's
+    winners from the embeddings alone (they read no label). emb (B, T, N, C)
+    -> (f, i, e), each (B, T - 1, N, knn): winner j of query n at frame t
+    is node i of frame f (f = -1: a pin not written yet, whose labels read
+    0) with e_j = exp(v_j - v_0), in winner order; a frame with fewer than
+    knn candidates pads with (f, i, e) = (-1, 0, 0). The affinities and the
+    top-k are `_winners` on the same feature ring as
+    `propagate_seq_reference`, so the lists are its winners bit for bit."""
+    B, T, N, C = emb.shape
+    long_mem = tuple(long_mem)
+    L = len(long_mem)
+    dev = emb.device
+    f = torch.full((B, T - 1, N, knn), -1, dtype=torch.int64, device=dev)
+    i = torch.zeros((B, T - 1, N, knn), dtype=torch.int64, device=dev)
+    e = torch.zeros((B, T - 1, N, knn), dtype=torch.float32, device=dev)
+    feats = torch.zeros((B, L + cxt, N, C), dtype=torch.float32, device=dev)
+    no_labels = torch.zeros((B, L + cxt, N, 0), dtype=torch.float32, device=dev)
+    _push_frame(long_mem, feats, no_labels, 0, emb[:, 0], no_labels[:, 0])
+    bias_all = (1.0 - _slot_validity(long_mem, cxt, torch.arange(1, T, device=dev))) * NEG_INVALID
+    for t in range(1, T):
+        nslots = L + min(t, cxt)
+        idx, ew = _winners(feats, emb[:, t], mask, bias_all[t - 1], temperature, knn, nslots)
+        k = idx.shape[-1]
+        frames = torch.as_tensor(_slot_frames(long_mem, cxt, t, nslots), device=dev)
+        f[:, t - 1, :, :k] = frames[idx // N]
+        i[:, t - 1, :, :k] = idx % N
+        e[:, t - 1, :, :k] = ew
+        _push_frame(long_mem, feats, no_labels, t, emb[:, t], no_labels[:, 0])
+    return f, i, e
+
+
+def _label_chain(lists, seeds):
+    """Phase B of the `prop_seq` kernel in plain PyTorch: the labels frame
+    by frame from `_winners_all_frames`' lists (f, i, e) and seeds (B, N, M)
+    -> soft (B, T, N, M), frame 0 the seeds. Winner by winner, e_j *
+    soft[f_j, i_j] summed unfused as in `_prop_step_batched`; the padding
+    (e = 0, no label) adds +0. With the lists of `_winners_all_frames` it
+    equals `propagate_seq_reference` bit for bit."""
+    f, i, e = lists
+    B, T1, N, k = f.shape
+    soft = torch.empty((B, T1 + 1, N, seeds.shape[-1]), dtype=torch.float32, device=seeds.device)
+    soft[:, 0] = seeds
+    rows = torch.arange(B, device=seeds.device)[:, None, None]
+    for t in range(1, T1 + 1):
+        ft = f[:, t - 1]
+        src = soft[rows, ft.clamp(min=0), i[:, t - 1]]  # (B, N, k, M)
+        src = torch.where((ft >= 0)[..., None], src, 0.0)
+        num = torch.zeros_like(soft[:, 0])
+        den = torch.zeros((B, N, 1), dtype=torch.float32, device=seeds.device)
+        for j in range(k):
+            num = num + e[:, t - 1, :, j, None] * src[:, :, j]
+            den = den + e[:, t - 1, :, j, None]
+        soft[:, t] = num / den
+    return soft
 
 
 def propagate_all_reference(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: int):

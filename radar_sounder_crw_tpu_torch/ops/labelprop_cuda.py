@@ -1,29 +1,38 @@
 """The hand-written CUDA propagation kernels: build, bind, launch.
 
   * `prop_step` (csrc/prop_step.cu) replaces the Pallas TPU kernel
-    `_prop_step_kernel`: one frame for all N queries.
+    `_prop_step_kernel`: one frame for all N queries, in two steps, a
+    (query tile x candidate chunk) grid of block top-k lists and their
+    merge with the weighted label sum.
   * `prop_seq` (csrc/prop_seq.cu) replaces `_prop_seq_v2_kernel`: the
-    whole (B, T-1) propagation of a batch of radargrams in one launch.
-  * `prop_all` (csrc/prop_all.cu) replaces `_prop_all_kernel`: the same
-    launch with the resident kernel's marking selection and weight
-    arithmetic.
-(all in radar_sounder_crw_tpu/ops/labelprop_pallas.py; the two
-whole-sequence kernels share csrc/prop_cluster.cuh and one C interface)
+    whole (B, T-1) propagation of a batch of radargrams, in two phases,
+    every frame's winners at once (`prop_seq_select`) and the label chain
+    (`prop_seq_chain`). Both kernels run the tile core of csrc/prop_tile.cuh.
+  * `prop_all` (csrc/prop_all.cu) replaces `_prop_all_kernel`: the whole
+    propagation in one launch with the resident kernel's marking selection
+    and weight arithmetic (frame loop in csrc/prop_cluster.cuh).
+(all in radar_sounder_crw_tpu/ops/labelprop_pallas.py)
 
 Each source is compiled at first use with its own `nvcc` for sm_90a (all
 sources at once) into a shared library with a plain C interface, under
 `.torch_ext_build/` beside the package, and loaded with ctypes; a build
 keyed by the hash of the sources and flags is reused. A failed build or
 launch raises: nothing falls back to the plain version on a CUDA tensor.
+What a launch asks of the card (shared-memory limit, occupancy) is asked
+once per process, device and shape.
 
 On CPU tensors each wrapper runs its plain PyTorch twin
 (`ops/labelprop._prop_step`, `propagate_seq_reference`,
-`propagate_all_reference`); on CUDA tensors it launches the kernel.
-`launches[name]` counts each kernel's launches.
+`propagate_all_reference`, and for the phases `_chunk_lists`,
+`_winners_all_frames`, `_label_chain`); on CUDA tensors it launches the
+kernel. `launches[name]` counts the wrapper calls that launch kernel
+`name`: one per `prop_step`, `prop_seq` or `prop_all` call, whatever the
+number of steps or phases inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,20 +42,26 @@ from pathlib import Path
 
 import torch
 
+from .labelprop import _affinity, _chunk_lists, _label_chain, _winners_all_frames
 from .labelprop import _prop_step as prop_step_reference
 from .labelprop import propagate_all_reference, propagate_seq_reference
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu" for name in ("prop_step", "prop_seq", "prop_all")}
-HEADERS = (CSRC / "prop_common.cuh", CSRC / "prop_cluster.cuh")
+HEADERS = tuple(CSRC / h for h in ("prop_common.cuh", "prop_cluster.cuh", "prop_tile.cuh"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
+TILE_QUERIES, TILE_ROWS = 64, 128  # csrc/prop_tile.cuh: kQ, kR
+MAX_KNN = 256  # csrc/prop_tile.cuh: 32 * kMaxListChunks, for prop_step and prop_seq
+
 launches = {name: 0 for name in SOURCES}
 _libs: dict[str, ctypes.CDLL] = {}
+_answers: dict[tuple, int] = {}
+_pin_arrays: dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -96,24 +111,51 @@ def build(verbose: bool = False) -> dict[str, Path]:
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         lib = ctypes.CDLL(str(build()[name]))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        if name == "prop_step":
-            lib.prop_step_launch.argtypes = [p] * 7 + [i, i, i, ctypes.c_float, i, i, p]
-        else:  # the whole-sequence kernels share one interface
-            getattr(lib, f"{name}_launch").argtypes = (
-                [p] * 5 + [i] * 7 + [ctypes.c_float] + [i] * 4 + [p])
-            for fn, nargs, res in (("cluster_size", 7, i), ("smem_bytes", 5, ctypes.c_longlong),
-                                   ("scratch_floats", 3, ctypes.c_longlong)):
-                getattr(lib, f"{name}_{fn}").argtypes = [i] * nargs
-                getattr(lib, f"{name}_{fn}").restype = res
-        getattr(lib, f"{name}_launch").restype = i
-        for fn in ("max_dynamic_smem", "max_classes"):
-            getattr(lib, f"{name}_{fn}").argtypes = []
-            getattr(lib, f"{name}_{fn}").restype = i
-        getattr(lib, f"{name}_error_string").argtypes = [i]
-        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        signatures = {
+            "prop_step": {
+                "launch": ([p] * 8 + [i] * 3 + [f] + [i] * 5 + [p], i),
+                "smem_bytes": ([i], ll),
+                "wave": ([i], i),
+            },
+            "prop_seq": {
+                "select_launch": ([p] * 5 + [i] * 6 + [f] + [i] * 3 + [p], i),
+                "chain_launch": ([p] * 3 + [i] * 6 + [p], i),
+                "select_smem_bytes": ([i] * 2, ll),
+                "chain_smem_bytes": ([i] * 5, ll),
+            },
+            "prop_all": {
+                "launch": ([p] * 5 + [i] * 7 + [f] + [i] * 4 + [p], i),
+                "cluster_size": ([i] * 7, i),
+                "smem_bytes": ([i] * 5, ll),
+                "scratch_floats": ([i] * 3, ll),
+            },
+        }[name]
+        signatures.update({"max_dynamic_smem": ([], i), "max_classes": ([], i),
+                           "error_string": ([i], ctypes.c_char_p)})
+        for fn, (args, res) in signatures.items():
+            getattr(lib, f"{name}_{fn}").argtypes = args
+            getattr(lib, f"{name}_{fn}").restype = res
         _libs[name] = lib
     return _libs[name]
+
+
+def _on(device: torch.device):
+    """The context that makes `device` current, entered only when it is not
+    (entering one costs microseconds on every launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _ask(name: str, device: torch.device, fn: str, *args) -> int:
+    """The answer of `{name}_{fn}(*args)` (a size, a limit, an occupancy),
+    asked once per process, device and arguments."""
+    key = (name, device.index, fn, args)
+    if key not in _answers:
+        with _on(device):
+            _answers[key] = getattr(_library(name), f"{name}_{fn}")(*args)
+    return _answers[key]
 
 
 def _check(name, x, shape, device):
@@ -126,21 +168,40 @@ def _check(name, x, shape, device):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
 
 
-def _check_common(lib, name: str, knn: int, M: int) -> None:
+def _check_common(name: str, device: torch.device, knn: int, M: int) -> None:
     if knn < 1:
         raise ValueError(f"knn must be >= 1, got {knn}")
-    if not 1 <= M <= getattr(lib, f"{name}_max_classes")():
-        raise ValueError(
-            f"{name}: the class count must lie in [1, {getattr(lib, f'{name}_max_classes')()}], "
-            f"got {M}"
-        )
+    max_classes = _ask(name, device, "max_classes")
+    if not 1 <= M <= max_classes:
+        raise ValueError(f"{name}: the class count must lie in [1, {max_classes}], got {M}")
 
 
-def _smem_limit(lib, name: str) -> int:
-    limit = getattr(lib, f"{name}_max_dynamic_smem")()
+def _pins(long_mem: tuple, device: torch.device) -> torch.Tensor:
+    """long_mem as an int32 array on the card, uploaded once per process
+    (an upload from pageable memory waits for the stream); never empty, so
+    the kernel always gets a valid pointer."""
+    key = (long_mem, device.index)
+    if key not in _pin_arrays:
+        _pin_arrays[key] = torch.tensor(list(long_mem) or [0], dtype=torch.int32, device=device)
+    return _pin_arrays[key]
+
+
+def _check_knn(knn: int) -> None:
+    if not 1 <= knn <= MAX_KNN:
+        raise ValueError(f"knn must lie in [1, {MAX_KNN}], got {knn}")
+
+
+def _smem_limit(name: str, device: torch.device) -> int:
+    limit = _ask(name, device, "max_dynamic_smem")
     if limit < 0:
         raise RuntimeError(f"{name}: cannot query the shared-memory limit")
     return limit
+
+
+def _check_smem(name: str, device: torch.device, nbytes: int, what: str) -> None:
+    if nbytes > _smem_limit(name, device):
+        raise ValueError(f"{name}: {what} take {nbytes} bytes of shared memory, above the "
+                         f"card's {_smem_limit(name, device)}")
 
 
 def _raise_on(lib, name: str, err: int) -> None:
@@ -149,11 +210,67 @@ def _raise_on(lib, name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
+def _vec4(C: int, *tensors) -> int:
+    """1 when every row of C floats starts on 16 bytes (float4 and cp.async loads)."""
+    return int(C % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in tensors))
+
+
+def step_chunk_rows(N: int, knn: int, nslots: int, device) -> int:
+    """Candidates per chunk of `prop_step`'s first step: tiles of TILE_ROWS
+    rows dealt so that ceil(N / TILE_QUERIES) x chunks CTAs fill the card
+    once (SMs x CTAs per SM) at this prefix."""
+    wave = _ask("prop_step", torch.device(device), "wave", knn)
+    if wave < 1:
+        raise RuntimeError("prop_step: cannot size the launch")
+    tiles = -(-(nslots * N) // TILE_ROWS)
+    per_wave = max(1, wave // -(-N // TILE_QUERIES))
+    return TILE_ROWS * -(-tiles // per_wave)
+
+
+def _step_checks(feats, query, mask, slot_bias, knn: int, nslots: int):
+    K, N, C = feats.shape
+    dev = feats.device
+    _check("feats", feats, (K, N, C), dev)
+    _check("query", query, (N, C), dev)
+    _check("mask", mask, (N, N), dev)
+    _check("slot_bias", slot_bias, (K,), dev)
+    if not 1 <= nslots <= K:
+        raise ValueError(f"nslots must lie in [1, {K}], got {nslots}")
+    _check_knn(knn)
+    _check_smem("prop_step", dev, _ask("prop_step", dev, "smem_bytes", knn),
+                f"the running lists of knn={knn}")
+
+
+def _step_launch(feats, query, mask, slot_bias, labels, pred, temperature: float, knn: int,
+                 nslots: int, chunk_rows: int):
+    """Step 1 into fresh chunk lists, then step 2 into pred unless pred is
+    None; returns the lists (values, indices), (N, n_chunks, knn) each."""
+    _, N, C = feats.shape
+    dev = feats.device
+    lib = _library("prop_step")
+    n_chunks = -(-(nslots * N) // chunk_rows)
+    # one allocation for both lists: values (float32 bits) and indices
+    lists = torch.empty((2, N, n_chunks, knn), dtype=torch.int32, device=dev)
+    list_v, list_i = lists[0].view(torch.float32), lists[1]
+    with _on(dev):
+        err = lib.prop_step_launch(
+            feats.data_ptr(), query.data_ptr(), mask.data_ptr(), slot_bias.data_ptr(),
+            None if labels is None else labels.data_ptr(),
+            None if pred is None else pred.data_ptr(), list_v.data_ptr(), list_i.data_ptr(),
+            N, C, 0 if labels is None else labels.shape[-1], float(temperature), int(knn),
+            int(nslots), int(chunk_rows), _vec4(C, feats, query), int(pred is not None),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, "prop_step", err)
+    return list_v, list_i
+
+
 def prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: int, nslots: int):
     """One propagation frame: feats (K, N, C), query (N, C), mask (N, N),
     slot_bias (K,), labels (K, N, M) -> pred (N, M), reading the first
     `nslots` slots. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel."""
+    kernel's two steps (block top-k lists, merge), counted as one launch;
+    knn <= MAX_KNN."""
     if feats.device.type == "cpu":
         return prop_step_reference(
             feats, query, mask, slot_bias, labels, temperature, knn, nslots
@@ -161,48 +278,178 @@ def prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: in
     K, N, C = feats.shape
     M = labels.shape[-1]
     dev = feats.device
-    _check("feats", feats, (K, N, C), dev)
-    _check("query", query, (N, C), dev)
-    _check("mask", mask, (N, N), dev)
-    _check("slot_bias", slot_bias, (K,), dev)
+    _step_checks(feats, query, mask, slot_bias, knn, nslots)
     _check("labels", labels, (K, N, M), dev)
-    lib = _library("prop_step")
-    if not 1 <= nslots <= K:
-        raise ValueError(f"nslots must lie in [1, {K}], got {nslots}")
-    _check_common(lib, "prop_step", knn, M)
+    _check_common("prop_step", dev, knn, M)
     pred = torch.empty((N, M), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        # the affinity column lives in shared memory when it fits, else in
-        # one global scratch column per query
-        col_bytes = 4 * (((C + 3) & ~3) + nslots * N)
-        gscratch = (
-            None if col_bytes <= _smem_limit(lib, "prop_step")
-            else torch.empty((N, nslots * N), dtype=torch.float32, device=dev)
-        )
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prop_step_launch(
-            feats.data_ptr(), query.data_ptr(), mask.data_ptr(),
-            slot_bias.data_ptr(), labels.data_ptr(), pred.data_ptr(),
-            None if gscratch is None else gscratch.data_ptr(),
-            N, C, M, float(temperature), int(knn), int(nslots), stream,
-        )
-    _raise_on(lib, "prop_step", err)
+    _step_launch(feats, query, mask, slot_bias, labels, pred, temperature, knn, nslots,
+                 step_chunk_rows(N, knn, nslots, dev))
     launches["prop_step"] += 1
     return pred
 
 
-def _whole_sequence(name: str, emb, seeds, mask, long_mem: tuple, cxt: int,
-                    temperature: float, knn: int):
-    """One launch of the whole-sequence kernel `name` ('prop_seq' or
-    'prop_all') on CUDA tensors; see `prop_seq`."""
+def prop_step_tiles(feats, query, mask, slot_bias, temperature: float, knn: int, nslots: int,
+                    chunk_rows: int):
+    """`prop_step`'s first step alone, for tests and timing: each chunk of
+    `chunk_rows` candidates' knn best (values, indices), (N, n_chunks, knn)
+    each, in winner order, padded with (-inf, 2**31 - 1). CPU tensors take
+    the plain twin (`_chunk_lists`); CUDA tensors launch step 1."""
+    if feats.device.type == "cpu":
+        flat = _affinity(feats[None], query[None], mask, slot_bias, temperature, nslots)
+        vals, idx = _chunk_lists(flat, knn, chunk_rows)
+        return vals[0], idx[0]
+    _step_checks(feats, query, mask, slot_bias, knn, nslots)
+    lists = _step_launch(feats, query, mask, slot_bias, None, None, temperature, knn, nslots,
+                         chunk_rows)
+    launches["prop_step"] += 1
+    return lists
+
+
+def unpack_sources(src, N: int):
+    """`prop_seq_select`'s sources -> (frame f, node i); f = -1: no label."""
+    return src // N - 1, src % N
+
+
+def _seq_checks(emb, mask, knn: int, cxt: int):
+    B, T, N, C = emb.shape
+    dev = emb.device
+    _check("emb", emb, (B, T, N, C), dev)
+    _check("mask", mask, (N, N), dev)
+    _check_knn(knn)
+    if cxt < 1:
+        raise ValueError(f"cxt must be >= 1, got {cxt}")
+
+
+def _select_launch(emb, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """Phase A on CUDA tensors: (src, e), (B, T - 1, N, knn) each."""
+    B, T, N, C = emb.shape
+    dev = emb.device
+    L = len(long_mem)
+    ns_max = L + min(T - 1, cxt)
+    _check_smem("prop_seq", dev, _ask("prop_seq", dev, "select_smem_bytes", knn, ns_max),
+                f"the running lists of knn={knn}")
+    src = torch.empty((B, T - 1, N, knn), dtype=torch.int32, device=dev)
+    e = torch.empty((B, T - 1, N, knn), dtype=torch.float32, device=dev)
+    if T == 1 or B == 0:
+        return src, e
+    pins = _pins(tuple(long_mem), dev)
+    lib = _library("prop_seq")
+    with _on(dev):
+        err = lib.prop_seq_select_launch(
+            emb.data_ptr(), mask.data_ptr(), pins.data_ptr(), src.data_ptr(), e.data_ptr(),
+            B, T, N, C, L, int(cxt), float(temperature), int(knn), ns_max, _vec4(C, emb),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, "prop_seq", err)
+    return src, e
+
+
+def _chain_launch(src, e, soft):
+    """Phase B on CUDA tensors: soft (B, T, N, M) frames 1.. from the lists,
+    frame 0 holding the seeds."""
+    B, T, N, M = soft.shape
+    knn = src.shape[-1]
+    dev = soft.device
+    if T == 1 or B == 0:
+        return soft
+    in_smem = int(_ask("prop_seq", dev, "chain_smem_bytes", T, N, M, knn, 1)
+                  <= _smem_limit("prop_seq", dev))
+    if not in_smem:
+        _check_smem("prop_seq", dev, _ask("prop_seq", dev, "chain_smem_bytes", T, N, M, knn, 0),
+                    f"one frame's lists of N={N} x knn={knn}")
+    lib = _library("prop_seq")
+    with _on(dev):
+        err = lib.prop_seq_chain_launch(
+            src.data_ptr(), e.data_ptr(), soft.data_ptr(), B, T, N, M, knn, in_smem,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(lib, "prop_seq", err)
+    return soft
+
+
+def _seed_frame(seeds, B: int, T: int, N: int, knn: int, device: torch.device):
+    """soft (B, T, N, M) on `device` with frame 0 the seeds, the rest to be
+    written."""
+    M = seeds.shape[-1]
+    _check("seeds", seeds, (B, N, M), device)
+    _check_common("prop_seq", device, knn, M)
+    soft = torch.empty((B, T, N, M), dtype=torch.float32, device=device)
+    soft[:, 0] = seeds
+    return soft
+
+
+def prop_seq(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """The whole propagation of a batch of radargrams: emb (B, T, N, C)
+    L2-normalized, seeds (B, N, M), mask (N, N) -> soft (B, T, N, M), frame 0
+    the seeds. CPU tensors take the plain twin; CUDA tensors launch the
+    kernel's two phases (every frame's winners, then the label chain),
+    counted as one launch (none when T == 1); knn <= MAX_KNN."""
+    if emb.device.type == "cpu":
+        return propagate_seq_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
+    B, T, N, _ = emb.shape
+    _seq_checks(emb, mask, knn, cxt)
+    soft = _seed_frame(seeds, B, T, N, knn, emb.device)
+    if T == 1 or B == 0:
+        return soft
+    src, e = _select_launch(emb, mask, tuple(long_mem), cxt, temperature, knn)
+    _chain_launch(src, e, soft)
+    launches["prop_seq"] += 1
+    return soft
+
+
+def prop_seq_select(emb, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """`prop_seq`'s phase A alone: every frame's winner lists (src, e),
+    (B, T - 1, N, knn) each, src = (f + 1) * N + i for node i of frame f
+    (`unpack_sources`; f = -1 reads no label). CPU tensors take the plain
+    twin (`_winners_all_frames`); CUDA tensors launch phase A (one count of
+    `prop_seq`)."""
+    N = emb.shape[2]
+    if emb.device.type == "cpu":
+        f, i, e = _winners_all_frames(emb, mask, tuple(long_mem), cxt, temperature, knn)
+        return ((f + 1) * N + i).to(torch.int32), e
+    _seq_checks(emb, mask, knn, cxt)
+    lists = _select_launch(emb, mask, tuple(long_mem), cxt, temperature, knn)
+    if emb.shape[1] > 1 and emb.shape[0] > 0:
+        launches["prop_seq"] += 1
+    return lists
+
+
+def prop_seq_chain(src, e, seeds):
+    """`prop_seq`'s phase B alone: the label chain from `prop_seq_select`'s
+    lists and seeds (B, N, M) -> soft (B, T, N, M). CPU tensors take the
+    plain twin (`_label_chain`); CUDA tensors launch phase B (one count of
+    `prop_seq`)."""
+    B, T1, N, knn = src.shape
+    if src.device.type == "cpu":
+        f, i = unpack_sources(src.long(), N)
+        return _label_chain((f, i, e), seeds)
+    for name, x, dtype in (("src", src, torch.int32), ("e", e, torch.float32)):
+        if x.device != src.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor on {src.device}")
+    if e.shape != src.shape:
+        raise ValueError(f"e: expected shape {tuple(src.shape)}, got {tuple(e.shape)}")
+    soft = _seed_frame(seeds, B, T1 + 1, N, knn, src.device)
+    _chain_launch(src, e, soft)
+    if T1 > 0 and B > 0:
+        launches["prop_seq"] += 1
+    return soft
+
+
+def prop_all(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """`prop_seq` with the weight arithmetic of the TPU resident kernel
+    (ops/labelprop._prop_all_step_batched): same arguments and result.
+    CPU tensors take the plain twin `propagate_all_reference`; CUDA tensors
+    launch the kernel once (none when T == 1)."""
+    if emb.device.type == "cpu":
+        return propagate_all_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
     B, T, N, C = emb.shape
     M = seeds.shape[-1]
     dev = emb.device
     _check("emb", emb, (B, T, N, C), dev)
     _check("seeds", seeds, (B, N, M), dev)
     _check("mask", mask, (N, N), dev)
-    lib = _library(name)
-    _check_common(lib, name, knn, M)
+    lib = _library("prop_all")
+    _check_common("prop_all", dev, knn, M)
     if cxt < 1:
         raise ValueError(f"cxt must be >= 1, got {cxt}")
     soft = torch.empty((B, T, N, M), dtype=torch.float32, device=dev)
@@ -211,21 +458,20 @@ def _whole_sequence(name: str, emb, seeds, mask, long_mem: tuple, cxt: int,
         return soft
     L = len(long_mem)
     ns_max = L + min(T - 1, cxt)
-    # a non-empty array, so the kernel always gets a valid pointer
-    pins = torch.tensor(list(long_mem) or [0], dtype=torch.int32, device=dev)
+    pins = _pins(tuple(long_mem), dev)
     vec4 = int(C % 4 == 0 and emb.data_ptr() % 16 == 0)
 
     def fn(f, *args):
-        return getattr(lib, f"{name}_{f}")(*args)
+        return getattr(lib, f"prop_all_{f}")(*args)
 
-    with torch.cuda.device(dev):
-        in_smem = fn("smem_bytes", C, N, ns_max, knn, 0) <= _smem_limit(lib, name)
+    with _on(dev):
+        in_smem = fn("smem_bytes", C, N, ns_max, knn, 0) <= _smem_limit("prop_all", dev)
         # CTAs per radargram (a thread-block cluster), from B, N and the card
         ncl = fn("cluster_size", B, N, C, ns_max, knn, int(not in_smem), vec4)
         if ncl < 1:
-            raise RuntimeError(f"{name}: cannot size the launch's clusters")
-        # the affinity columns (and prop_all's winner lists) live in shared
-        # memory when they fit, else in this scratch, one area per CTA
+            raise RuntimeError("prop_all: cannot size the launch's clusters")
+        # the affinity columns and the winner lists live in shared memory
+        # when they fit, else in this scratch, one area per CTA
         gscratch = (
             None if in_smem
             else torch.empty((B * ncl, fn("scratch_floats", N, ns_max, knn)),
@@ -238,26 +484,6 @@ def _whole_sequence(name: str, emb, seeds, mask, long_mem: tuple, cxt: int,
             B, T, N, C, M, L, int(cxt), float(temperature), int(knn), ns_max, ncl, vec4,
             stream,
         )
-    _raise_on(lib, name, err)
-    launches[name] += 1
+    _raise_on(lib, "prop_all", err)
+    launches["prop_all"] += 1
     return soft
-
-
-def prop_seq(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
-    """The whole propagation of a batch of radargrams: emb (B, T, N, C)
-    L2-normalized, seeds (B, N, M), mask (N, N) -> soft (B, T, N, M), frame 0
-    the seeds. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel once (none when T == 1)."""
-    if emb.device.type == "cpu":
-        return propagate_seq_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
-    return _whole_sequence("prop_seq", emb, seeds, mask, long_mem, cxt, temperature, knn)
-
-
-def prop_all(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
-    """`prop_seq` with the weight arithmetic of the TPU resident kernel
-    (ops/labelprop._prop_all_step_batched): same arguments and result.
-    CPU tensors take the plain twin `propagate_all_reference`; CUDA tensors
-    launch the kernel once (none when T == 1)."""
-    if emb.device.type == "cpu":
-        return propagate_all_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
-    return _whole_sequence("prop_all", emb, seeds, mask, long_mem, cxt, temperature, knn)

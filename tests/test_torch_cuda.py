@@ -6,11 +6,10 @@ one. The file imports no JAX, so on a machine without it run:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: pred to atol 1e-4 (a convex mix of labels in [0, 1]; the kernel
-and cuBLAS sum the dot products in other orders), argmax exactly equal. The
-whole-sequence kernels run on embeddings on a 2**-5 grid, so every dot
-product is exact in any summation order and a near-tie cannot send the two
-sides' selections apart over a hundred frames; there `prop_all` equals its
-twin bit for bit.
+and cuBLAS sum the dot products in other orders), argmax exactly equal. On
+dyadic or 2**-5-grid inputs every dot product is exact in any summation
+order, so a near-tie cannot send the two sides' selections apart: there
+the kernels, their steps and their phases equal their twins bit for bit.
 """
 
 import numpy as np
@@ -21,7 +20,11 @@ from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
 from radar_sounder_crw_tpu_torch.ops.labelprop import (
     NEG_INVALID,
     LabelPropConfig,
+    _affinity,
+    _chunk_lists,
+    _label_chain,
     _prop_step,
+    _winners_all_frames,
     propagate_labels,
     propagate_all_reference,
     propagate_labels_batched,
@@ -64,11 +67,17 @@ def _inputs(K, N, C, M, radius, nslots, seed, ties, device):
     [
         (101, 190, 128, 6, 20, 60, 0.01, 101, False),  # MC3 step, saturated ring
         (101, 190, 128, 6, 20, 60, 0.01, 12, False),  # MC3 step, valid prefix
+        (101, 190, 128, 6, 20, 60, 0.01, 2, False),  # MC3 prefix at t = 1
+        (101, 190, 128, 6, 20, 60, 0.01, 3, False),  # t = 2
+        (101, 190, 128, 6, 20, 60, 0.01, 38, False),  # t = 37
         (101, 113, 128, 5, 20, 10, 0.1, 101, False),  # SHARAD step
         (101, 113, 128, 5, 20, 10, 0.1, 50, True),  # tie-heavy
         (4, 5, 8, 3, 30, 3, 0.07, 2, False),  # knn above the candidate count
         (7, 30, 7, 4, 9, 5, 0.07, 7, False),  # C not a multiple of 4
-        (160, 400, 64, 4, 20, 30, 0.05, 160, False),  # column in global scratch
+        (160, 400, 64, 4, 20, 30, 0.05, 160, False),  # 7 query tiles, long chunks
+        (101, 190, 128, 6, 40, 60, 0.01, 101, True),  # dyadic ties, knn above 32
+        (5, 65, 36, 3, 25, 5, 0.07, 4, True),  # two query tiles, a partial channel stage
+        (9, 70, 132, 4, 1, 8, 0.1, 9, False),  # knn = 1, C = 132
     ],
 )
 def test_kernel_matches_plain_step(cuda, K, N, C, M, knn, radius, temp, nslots, ties):
@@ -81,6 +90,24 @@ def test_kernel_matches_plain_step(cuda, K, N, C, M, knn, radius, temp, nslots, 
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= ATOL
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+    if ties:  # exact dot products: the same winners, weights and sums
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 128, 300, 5000])
+def test_block_topk_lists_equal_the_twin(cuda, chunk_rows):
+    """Step 1's chunk lists equal `_chunk_lists` exactly on dyadic inputs,
+    at the planned chunk and at chunks that split runs of equal values."""
+    K, N, C, M, knn, nslots = 101, 190, 128, 6, 20, 64
+    feats, query, mask, bias, _ = _inputs(K, N, C, M, 60, nslots, 1, True, cuda)
+    if chunk_rows is None:
+        chunk_rows = labelprop_cuda.step_chunk_rows(N, knn, nslots, cuda)
+    vals, idx = labelprop_cuda.prop_step_tiles(feats, query, mask, bias, 0.01, knn, nslots,
+                                               chunk_rows)
+    flat = _affinity(feats[None], query[None], mask, bias, 0.01, nslots)
+    want_v, want_i = _chunk_lists(flat, knn, chunk_rows)
+    assert torch.equal(vals, want_v[0])
+    assert torch.equal(idx.long(), want_i[0])
 
 
 def test_propagation_cuda_matches_plain(cuda):
@@ -138,12 +165,38 @@ def test_seq_kernel_matches_plain_twin(cuda, B, T, N, C, M, cxt, radius, temp, k
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= ATOL
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+    assert torch.equal(got, want)  # exact dot products on the grid
     # the batched entry point routes 'auto' on the card to this kernel
     cfg = LabelPropConfig(cxt_size=cxt, radius=radius, temperature=temp, knn=knn,
                           long_mem=long_mem)
     soft, _ = propagate_labels_batched(emb, seeds, cfg)
     assert labelprop_cuda.launches["prop_seq"] == before + 2
     assert torch.equal(soft, got)
+
+
+@pytest.mark.parametrize(
+    "B,T,N,C,M,cxt,radius,temp,knn,long_mem",
+    [
+        (3, 12, 10, 8, 3, 4, 3, 0.07, 3, (0, 2)),  # wrapping ring, pins not yet written
+        (2, 9, 12, 8, 4, 4, 3, 0.07, 5, ()),  # no pins
+        (2, 6, 5, 8, 3, 2, 3, 0.07, 15, (0,)),  # knn above the early frames' candidates
+        (2, 12, 40, 7, 3, 20, 9, 0.05, 20, (0,)),  # C not a multiple of 4
+        (3, 30, 50, 128, 6, 10, 10, 0.1, 40, (0, 3)),  # survey width, knn above 32
+        (2, 9, 70, 36, 3, 4, 5, 0.07, 25, (0, 2)),  # two query tiles, a partial channel stage
+    ],
+)
+def test_seq_phases_equal_their_twins(cuda, B, T, N, C, M, cxt, radius, temp, knn, long_mem):
+    """Phase A's lists equal `_winners_all_frames` exactly, and phase B on
+    them equals `_label_chain` bit for bit."""
+    emb, seeds = _seq_inputs(B, T, N, C, M, 5, cuda)
+    mask = torch.as_tensor(radius_mask(N, 1, radius), device=cuda)
+    src, e = labelprop_cuda.prop_seq_select(emb, mask, long_mem, cxt, temp, knn)
+    f, i, e_want = _winners_all_frames(emb, mask, long_mem, cxt, temp, knn)
+    got_f, got_i = labelprop_cuda.unpack_sources(src.long(), N)
+    assert torch.equal(got_f, f) and torch.equal(got_i, i) and torch.equal(e, e_want)
+    soft = labelprop_cuda.prop_seq_chain(src, e, seeds)
+    assert torch.equal(soft, _label_chain((f, i, e_want), seeds))
+    assert torch.equal(soft, labelprop_cuda.prop_seq(emb, seeds, mask, long_mem, cxt, temp, knn))
 
 
 def test_seq_kernel_single_frame_makes_no_launch(cuda):
