@@ -4,8 +4,9 @@
 
 Phases, one line each, any failure exits non-zero:
   1. build the three CUDA propagation kernels, csrc/prop_step.cu,
-     csrc/prop_seq.cu (both on the tile core csrc/prop_tile.cuh) and
-     csrc/prop_all.cu (sm_90a, one nvcc each, started together);
+     csrc/prop_seq.cu and csrc/prop_all.cu, all on the tile core
+     csrc/prop_tile.cuh, the last two on the all-frames kernels of
+     csrc/prop_frames.cuh (sm_90a, one nvcc each, started together);
   2. hold prop_step against its plain PyTorch twin at MC3 and SHARAD step
      shapes, the MC3 prefixes of frames t = 1, 2, 37 and 100, a tie-heavy
      case (bit for bit), knn above the candidate count, an odd channel
@@ -20,7 +21,10 @@ Phases, one line each, any failure exits non-zero:
   4. times on the card: encode, propagate, seed->map and reseed wall ms,
      the kernel per launch and per seed->map (CUDA events), split into its
      tile and merge steps, with the share of the bound, the plain step,
-     and one torch.matmul of the same affinity product as a yardstick;
+     one torch.matmul of the same affinity product as a yardstick, and the
+     host's share of a prop_step call (wall per call of the 99-call loop
+     minus its device time per call, read with every launch queued behind
+     a long matmul);
   5. hold prop_seq against its plain twin (the batched frame loop) at the
      Miguel survey shape (B = 63, T = 100, N = 50), at MC3 width (N = 190),
      on a wrapping ring with pins, with knn above the candidate count, on
@@ -32,7 +36,9 @@ Phases, one line each, any failure exits non-zero:
   6. hold prop_all bit for bit against its plain twin
      (propagate_all_reference) at the same shapes plus an empty long_mem,
      one launch per case (none at T = 1), and against prop_seq at the survey
-     shape (soft to 1e-5, >= 99.5 % equal maps); then MC3 seed->map and
+     shape (soft to 1e-5, >= 99.5 % equal maps); its row-ordered weight
+     lists against `_weights_all_frames` on the wrapping ring with pins and
+     the tie-heavy case, exactly; then MC3 seed->map and
      reseed through PropagationPipeline(kernel="cuda_resident"): one
      prop_all launch each, >= 99.5 % equal maps with the cuda path, equal
      change_idx, wall times;
@@ -50,8 +56,9 @@ Phases, one line each, any failure exits non-zero:
   8. survey times: wall ms and radargrams/s (median of 5), the encode of
      the 315,000 patches, prop_seq per launch split into phase A (every
      frame's winners) and phase B (the label chain), and prop_all per
-     launch, against their bound (prop_all also at MC3, B = 1), the plain
-     twins, the plain and the
+     launch split into the selection, the weight epilogue and the chain,
+     against their bound (prop_all also at MC3, B = 1; the selection there
+     at B = 1 and B = 4), the plain twins, the plain and the
      per-frame-kernel survey propagation, a batched torch.bmm of the
      saturated affinity product as a yardstick, and the device's busy time
      by kernel over one survey call (torch.profiler);
@@ -205,6 +212,24 @@ def device_busy(fn):
           + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for us, name in rows[:8]))
     return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us}
+
+
+def resident_split_ms(args, prefix):
+    """prop_all's steps at one shape (CUDA events): the selection alone
+    (prop_seq's phase A: the same kernel without the weight epilogue), the
+    epilogue (prop_all's first launch minus that selection, a difference of
+    two timed calls) and the weights-only chain."""
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+
+    emb, seeds, mask, *rest = args
+    select_ms = cuda_ms(lambda: labelprop_cuda.prop_seq_select(emb, mask, *rest), iters=10,
+                        warmup=2)
+    fused_ms = cuda_ms(lambda: labelprop_cuda.prop_all_weights(emb, mask, *rest), iters=10,
+                       warmup=2)
+    lists = labelprop_cuda.prop_all_weights(emb, mask, *rest)
+    chain_ms = cuda_ms(lambda: labelprop_cuda.prop_all_chain(*lists, seeds), iters=10, warmup=2)
+    return {f"{prefix}_select_ms": select_ms, f"{prefix}_weights_ms": fused_ms - select_ms,
+            f"{prefix}_chain_ms": chain_ms}
 
 
 def survey_phase(smi):
@@ -403,6 +428,7 @@ def survey_phase(smi):
         "prop_all_ms_per_launch": resident_ms,
         "prop_all_bound_share": bound_ms / resident_ms,
         "prop_all_plain_twin_ms": resident_plain_ms,
+        **resident_split_ms(args, "prop_all"),
         "survey_resident_ms": wall_ms(lambda: resident.propagate_survey(ds, ids, refs)),
         "affinity_bmm_ms": bmm_ms,
         "survey_per_frame_kernel_ms": wall_ms(
@@ -586,6 +612,28 @@ def main() -> int:
             labelprop_cuda.prop_step(feats, query, mask, bias, labels, 0.01, knn, ns)
 
     path_kernel_ms = cuda_ms(path_launches, iters=3, warmup=1)
+
+    # the host's share of a prop_step call: the same 99 calls queued behind
+    # matmuls that outlast their enqueueing, so the card runs them back to
+    # back and the events around them read device time alone
+    path_wall_ms = wall_ms(path_launches)
+    big = torch.randn((8192, 8192), device="cuda")
+    matmul_block_ms = cuda_ms(lambda: big @ big, iters=2, warmup=1)
+    n_block = int(3 * path_wall_ms / matmul_block_ms) + 1
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_block):
+        big @ big
+    start.record()
+    path_launches()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    path_device_ms = start.elapsed_time(end)
+    if enqueue_ms >= n_block * matmul_block_ms:
+        raise SystemExit("the prop_step launches were not all queued before the card reached them")
+    del big
     path_ops = sum(step_flops_bytes(K, N, C, M, knn, ns)[0] for ns in nslots_path)
     path_bound_ms = path_ops / PEAK_F32_FLOPS * 1e3
 
@@ -607,6 +655,11 @@ def main() -> int:
         "kernel_merge_ms_per_seed_to_map": path_kernel_ms - path_tile_ms,
         "kernel_bound_ms_per_seed_to_map": path_bound_ms,
         "kernel_bound_share_per_seed_to_map": path_bound_ms / path_kernel_ms,
+        "prop_step_wall_us_per_call": path_wall_ms / len(nslots_path) * 1e3,
+        "prop_step_device_us_per_call": path_device_ms / len(nslots_path) * 1e3,
+        "prop_step_host_us_per_call": (path_wall_ms - path_device_ms) / len(nslots_path) * 1e3,
+        "propagate_non_kernel_us_per_frame":
+            (times["propagate_ms"] - path_device_ms) / len(nslots_path) * 1e3,
         "plain_step_ms": plain_ms,
         "affinity_matmul_ms": matmul_ms,
     })
@@ -669,7 +722,10 @@ def main() -> int:
         raise SystemExit("cuda_seq disagrees with the per-frame cuda path on the MC3 window")
 
     # 6. prop_all vs its plain twin, and the cuda_resident route on MC3 -------
-    from radar_sounder_crw_tpu_torch.ops.labelprop import propagate_all_reference
+    from radar_sounder_crw_tpu_torch.ops.labelprop import (
+        _weights_all_frames,
+        propagate_all_reference,
+    )
 
     resident_cases = [*seq_cases[:3], ("no_pins", 2, 12, 24, 32, 4, 4, 5, 0.07, 6, (), False),
                       *seq_cases[3:]]
@@ -693,6 +749,16 @@ def main() -> int:
                 and n_launch == (1 if Ts > 1 else 0)):
             raise SystemExit(f"prop_all differs from its plain twin on {name}")
         resident_err = max(resident_err, err)
+        if ties or name == "wrap_pins":  # the lists alone: weights in row order, exactly
+            src, w_got = labelprop_cuda.prop_all_weights(e, m, lm, cxt, temp, knn_s)
+            f_got, i_got = labelprop_cuda.unpack_sources(src.long(), Ns)
+            f_want, i_want, w_want = _weights_all_frames(e, m, lm, cxt, temp, knn_s)
+            lists_equal = (torch.equal(f_got, f_want) and torch.equal(i_got, i_want)
+                           and torch.equal(w_got, w_want))
+            phase("resident_vs_plain", f"{name}: weight lists {tuple(src.shape)} equal to "
+                  f"_weights_all_frames: {lists_equal}")
+            if not lists_equal:
+                raise SystemExit(f"prop_all's weight lists differ from the twin's on {name}")
         if name == "survey":  # the other weight arithmetic, same winners
             other = labelprop_cuda.prop_seq(e, s0, m, lm, cxt, temp, knn_s)
             diff = (got - other).abs().max().item()
@@ -739,7 +805,13 @@ def main() -> int:
         "prop_all_mc3_plain_twin_ms": cuda_ms(
             lambda: propagate_all_reference(*args_mc3), iters=2, warmup=1),
         "prop_all_mc3_bound_ms": bound(mc3_ops, mc3_bytes)[0],
+        **resident_split_ms(args_mc3, "prop_all_mc3"),
     }
+    resident_times["prop_seq_select_mc3_b1_ms"] = resident_times["prop_all_mc3_select_ms"]
+    # the same selection for 4 radargrams: what B = 1 loses to its last frames' long CTAs
+    emb4 = args_mc3[0].expand(4, -1, -1, -1).contiguous()
+    resident_times["prop_seq_select_mc3_b4_ms"] = cuda_ms(
+        lambda: labelprop_cuda.prop_seq_select(emb4, *args_mc3[2:]), iters=10, warmup=2)
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in resident_times.items()))
     times.update(resident_times)
 
@@ -797,7 +869,13 @@ def main() -> int:
         "bound_by": seq_bound_by,
         "library_ms": None,
         "affinity_bmm_ms": survey_times["affinity_bmm_ms"],
+        "select_ms": survey_times["prop_all_select_ms"],
+        "weights_ms": survey_times["prop_all_weights_ms"],
+        "chain_ms": survey_times["prop_all_chain_ms"],
         "ms_mc3_b1": times["prop_all_mc3_ms_per_launch"],
+        "select_ms_mc3_b1": times["prop_all_mc3_select_ms"],
+        "weights_ms_mc3_b1": times["prop_all_mc3_weights_ms"],
+        "chain_ms_mc3_b1": times["prop_all_mc3_chain_ms"],
         "plain_ms_mc3_b1": times["prop_all_mc3_plain_twin_ms"],
         "bound_ms_mc3_b1": times["prop_all_mc3_bound_ms"],
     }], "times": times, "survey_times": survey_times}))

@@ -1,15 +1,16 @@
 // Pieces shared by the propagation kernels (prop_step.cu, prop_seq.cu,
-// prop_all.cu and their headers prop_tile.cuh, prop_cluster.cuh).
+// prop_all.cu and their headers prop_tile.cuh, prop_frames.cuh).
 //
 // Winner order: candidates compare by (value descending, index ascending),
-// the order of `lax.top_k` and of a stable descending sort. prop_step and
-// prop_seq keep a running list of the knn best per query (prop_tile.cuh);
-// prop_all runs knn passes that mark each winner.
+// the order of `lax.top_k` and of a stable descending sort. Every kernel
+// keeps a running list of the knn best per query (prop_tile.cuh).
 //
 // Softmax-weighted label sum, in winner order j = 0, 1, ...:
 //   e_j = exp(v_j - v_0);  num += e_j * label_j;  den += e_j;  pred = num / den
 // with the product and the sum rounded separately (no fused multiply-add),
-// the arithmetic of the plain twin `_prop_step_batched` in ops/labelprop.py.
+// the arithmetic of the plain twin `_prop_step_batched` in ops/labelprop.py
+// (prop_all normalises each weight first and sums in ascending row order:
+// `_prop_all_step_batched`).
 
 #pragma once
 

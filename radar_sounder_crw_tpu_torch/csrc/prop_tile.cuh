@@ -1,5 +1,6 @@
-// The tile core shared by prop_step.cu and prop_seq.cu's selection phase:
-// the exact top-knn of a tile of kQ queries over a run of candidate rows.
+// The tile core shared by prop_step.cu and the all-frames selection of
+// prop_seq.cu and prop_all.cu (prop_frames.cuh): the exact top-knn of a
+// tile of kQ queries over a run of candidate rows.
 //
 // For candidate r of the run [r_begin, r_end) (slot s = r / N, node
 // i = r - s*N) and query n:
@@ -34,7 +35,8 @@
 //
 // A row source `Rows` gives `row(r)` (a pointer to C floats, or nullptr for
 // an all-zero row) and `bias(s)` (the slot's validity bias): the explicit
-// ring for prop_step, the embeddings through the slot table for prop_seq.
+// ring for prop_step, the embeddings through the slot table for prop_seq
+// and prop_all.
 
 #pragma once
 

@@ -35,8 +35,11 @@ routes compute them for a batch of radargrams (`propagate_labels_batched`;
 The kernels split the work in ways the plain loop does not, and each split
 has its plain twin here, equal to the loop bit for bit on exact inputs:
 `_winners_chunked` (prop_step's block top-k lists over candidate chunks and
-their merge) and `_winners_all_frames` + `_label_chain` (prop_seq's every
-frame's winners from the embeddings alone, then the label chain).
+their merge), `_winners_all_frames` + `_label_chain` (prop_seq's every
+frame's winners from the embeddings alone, then the label chain) and
+`_weights_all_frames` + `_label_chain(..., weights_only=True)` (prop_all's
+every frame's normalised weights in candidate-row order, then a chain of
+weighted sums alone).
 
 All walk only the valid slot PREFIX L + min(t, cxt): the slots beyond it
 have not been written yet and carry the NEG_INVALID bias, so their softmax
@@ -209,7 +212,7 @@ def _prop_all_step_batched(feats, query, mask, slot_bias, labels, temperature: f
 
     Contract, shared bit for bit with csrc/prop_all.cu:
       * den = sum_j e_j, accumulated in winner order j = 0, 1, ...;
-      * w_j = e_j / den, an IEEE division;
+      * w_j = e_j / den, an IEEE division (`_row_order_weights`);
       * pred = sum_j w_j * label_j over the winners in ASCENDING candidate
         index (the row order in which the TPU kernel's product labels . W
         reads them), the product and the sum rounded separately.
@@ -219,18 +222,24 @@ def _prop_all_step_batched(feats, query, mask, slot_bias, labels, temperature: f
     winner there (knn above the prefix's candidates) has e_j = 0 exactly
     and adds +0 to den and to pred."""
     B, _, N, _ = feats.shape
-    idx, e = _winners(feats, query, mask, slot_bias, temperature, knn, nslots)
-    den = torch.zeros((B, N, 1), dtype=torch.float32, device=feats.device)
-    for j in range(idx.shape[-1]):
-        den = den + e[..., j, None]
-    w = e / den
-    idx, order = torch.sort(idx, dim=-1)  # candidate indices are distinct
-    w = torch.gather(w, -1, order)
+    idx, w = _row_order_weights(
+        *_winners(feats, query, mask, slot_bias, temperature, knn, nslots))
     src = _gather_labels(labels, idx, nslots)  # (B, N, k, M)
     pred = torch.zeros((B, N, labels.shape[-1]), dtype=torch.float32, device=feats.device)
     for j in range(idx.shape[-1]):
         pred = pred + w[..., j, None] * src[..., j, :]
     return pred
+
+
+def _row_order_weights(idx, e):
+    """The resident kernel's weights of `_winners`' lists (idx, e), (..., k)
+    each: den = sum_j e_j accumulated in winner order, w_j = e_j / den, then
+    the entries in ascending candidate index -> (idx, w)."""
+    den = torch.zeros_like(e[..., :1])
+    for j in range(e.shape[-1]):
+        den = den + e[..., j, None]
+    idx, order = torch.sort(idx, dim=-1)  # candidate indices are distinct
+    return idx, torch.gather(e / den, -1, order)
 
 
 def _prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: int, nslots: int):
@@ -283,46 +292,70 @@ def _slot_frames(long_mem, cxt: int, t: int, nslots: int) -> list[int]:
     return (pins + [r + cxt * ((t - 1 - r) // cxt) for r in range(min(t, cxt))])[:nslots]
 
 
-def _winners_all_frames(emb, mask, long_mem, cxt: int, temperature: float, knn: int):
-    """Phase A of the `prop_seq` kernel in plain PyTorch: every frame's
-    winners from the embeddings alone (they read no label). emb (B, T, N, C)
-    -> (f, i, e), each (B, T - 1, N, knn): winner j of query n at frame t
-    is node i of frame f (f = -1: a pin not written yet, whose labels read
-    0) with e_j = exp(v_j - v_0), in winner order; a frame with fewer than
-    knn candidates pads with (f, i, e) = (-1, 0, 0). The affinities and the
-    top-k are `_winners` on the same feature ring as
-    `propagate_seq_reference`, so the lists are its winners bit for bit."""
+def _lists_all_frames(emb, mask, long_mem, cxt: int, temperature: float, knn: int, reorder=None):
+    """Every frame's winner lists from the embeddings alone (they read no
+    label): emb (B, T, N, C) -> (f, i, x), each (B, T - 1, N, knn). Entry j
+    of query n at frame t is node i of frame f (f = -1: a pin not written
+    yet, whose labels read 0) with value x; a frame with fewer than knn
+    candidates pads with (-1, 0, 0) at the end. The affinities and the top-k
+    are `_winners` on the same feature ring as `propagate_seq_reference`.
+    `reorder` maps `_winners`' (idx, e) to the (idx, x) stored; default: as
+    they are, winner order with x = e."""
     B, T, N, C = emb.shape
     long_mem = tuple(long_mem)
     L = len(long_mem)
     dev = emb.device
     f = torch.full((B, T - 1, N, knn), -1, dtype=torch.int64, device=dev)
     i = torch.zeros((B, T - 1, N, knn), dtype=torch.int64, device=dev)
-    e = torch.zeros((B, T - 1, N, knn), dtype=torch.float32, device=dev)
+    x = torch.zeros((B, T - 1, N, knn), dtype=torch.float32, device=dev)
     feats = torch.zeros((B, L + cxt, N, C), dtype=torch.float32, device=dev)
     no_labels = torch.zeros((B, L + cxt, N, 0), dtype=torch.float32, device=dev)
     _push_frame(long_mem, feats, no_labels, 0, emb[:, 0], no_labels[:, 0])
     bias_all = (1.0 - _slot_validity(long_mem, cxt, torch.arange(1, T, device=dev))) * NEG_INVALID
     for t in range(1, T):
         nslots = L + min(t, cxt)
-        idx, ew = _winners(feats, emb[:, t], mask, bias_all[t - 1], temperature, knn, nslots)
+        idx, xs = _winners(feats, emb[:, t], mask, bias_all[t - 1], temperature, knn, nslots)
+        if reorder is not None:
+            idx, xs = reorder(idx, xs)
         k = idx.shape[-1]
         frames = torch.as_tensor(_slot_frames(long_mem, cxt, t, nslots), device=dev)
         f[:, t - 1, :, :k] = frames[idx // N]
         i[:, t - 1, :, :k] = idx % N
-        e[:, t - 1, :, :k] = ew
+        x[:, t - 1, :, :k] = xs
         _push_frame(long_mem, feats, no_labels, t, emb[:, t], no_labels[:, 0])
-    return f, i, e
+    return f, i, x
 
 
-def _label_chain(lists, seeds):
-    """Phase B of the `prop_seq` kernel in plain PyTorch: the labels frame
-    by frame from `_winners_all_frames`' lists (f, i, e) and seeds (B, N, M)
-    -> soft (B, T, N, M), frame 0 the seeds. Winner by winner, e_j *
-    soft[f_j, i_j] summed unfused as in `_prop_step_batched`; the padding
-    (e = 0, no label) adds +0. With the lists of `_winners_all_frames` it
-    equals `propagate_seq_reference` bit for bit."""
-    f, i, e = lists
+def _winners_all_frames(emb, mask, long_mem, cxt: int, temperature: float, knn: int):
+    """Phase A of the `prop_seq` kernel in plain PyTorch: `_lists_all_frames`
+    in winner order with e_j = exp(v_j - v_0), so the lists are
+    `propagate_seq_reference`'s winners bit for bit."""
+    return _lists_all_frames(emb, mask, long_mem, cxt, temperature, knn)
+
+
+def _weights_all_frames(emb, mask, long_mem, cxt: int, temperature: float, knn: int):
+    """Steps 1 and 2 of the `prop_all` kernel in plain PyTorch:
+    `_lists_all_frames` with `_row_order_weights`, each frame's entries in
+    ascending candidate row s*N + i (slot order, not frame order: the two
+    part once the ring wraps or a pin is read) with w_j = e_j / den. An
+    entry of a slot that is not valid (a pin whose frame is still in the
+    ring, or not yet written) has e_j = 0 exactly, so w_j = 0."""
+    return _lists_all_frames(emb, mask, long_mem, cxt, temperature, knn, _row_order_weights)
+
+
+def _label_chain(lists, seeds, weights_only: bool = False):
+    """The label chain of the whole-sequence kernels in plain PyTorch: the
+    labels frame by frame from `_lists_all_frames`' lists (f, i, x) and
+    seeds (B, N, M) -> soft (B, T, N, M), frame 0 the seeds. Entry by entry
+    in the stored order, x_j * soft[f_j, i_j] summed unfused as in
+    `_prop_step_batched`; the padding (x = 0, no label) adds +0.
+      * `prop_seq`'s phase B: soft[t] = sum / sum_j x_j; with the lists of
+        `_winners_all_frames` it equals `propagate_seq_reference` bit for
+        bit.
+      * weights_only (`prop_all`'s step 3): soft[t] = sum; with the lists of
+        `_weights_all_frames` it equals `propagate_all_reference` bit for
+        bit."""
+    f, i, x = lists
     B, T1, N, k = f.shape
     soft = torch.empty((B, T1 + 1, N, seeds.shape[-1]), dtype=torch.float32, device=seeds.device)
     soft[:, 0] = seeds
@@ -334,9 +367,9 @@ def _label_chain(lists, seeds):
         num = torch.zeros_like(soft[:, 0])
         den = torch.zeros((B, N, 1), dtype=torch.float32, device=seeds.device)
         for j in range(k):
-            num = num + e[:, t - 1, :, j, None] * src[:, :, j]
-            den = den + e[:, t - 1, :, j, None]
-        soft[:, t] = num / den
+            num = num + x[:, t - 1, :, j, None] * src[:, :, j]
+            den = den + x[:, t - 1, :, j, None]
+        soft[:, t] = num if weights_only else num / den
     return soft
 
 

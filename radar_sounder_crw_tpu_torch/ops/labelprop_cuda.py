@@ -7,11 +7,15 @@
   * `prop_seq` (csrc/prop_seq.cu) replaces `_prop_seq_v2_kernel`: the
     whole (B, T-1) propagation of a batch of radargrams, in two phases,
     every frame's winners at once (`prop_seq_select`) and the label chain
-    (`prop_seq_chain`). Both kernels run the tile core of csrc/prop_tile.cuh.
-  * `prop_all` (csrc/prop_all.cu) replaces `_prop_all_kernel`: the whole
-    propagation in one launch with the resident kernel's marking selection
-    and weight arithmetic (frame loop in csrc/prop_cluster.cuh).
-(all in radar_sounder_crw_tpu/ops/labelprop_pallas.py)
+    (`prop_seq_chain`).
+  * `prop_all` (csrc/prop_all.cu) replaces `_prop_all_kernel`: the same
+    propagation with the resident kernel's weight arithmetic, in the same
+    two launches: every frame's selection with an epilogue that writes each
+    list's normalised weights in candidate-row order (`prop_all_weights`),
+    and a chain of weighted sums alone (`prop_all_chain`).
+(all in radar_sounder_crw_tpu/ops/labelprop_pallas.py). All three run the
+tile core of csrc/prop_tile.cuh; `prop_seq` and `prop_all` instantiate the
+same two kernels, csrc/prop_frames.cuh.
 
 Each source is compiled at first use with its own `nvcc` for sm_90a (all
 sources at once) into a shared library with a plain C interface, under
@@ -24,10 +28,10 @@ once per process, device and shape.
 On CPU tensors each wrapper runs its plain PyTorch twin
 (`ops/labelprop._prop_step`, `propagate_seq_reference`,
 `propagate_all_reference`, and for the phases `_chunk_lists`,
-`_winners_all_frames`, `_label_chain`); on CUDA tensors it launches the
-kernel. `launches[name]` counts the wrapper calls that launch kernel
-`name`: one per `prop_step`, `prop_seq` or `prop_all` call, whatever the
-number of steps or phases inside it.
+`_winners_all_frames`, `_weights_all_frames`, `_label_chain`); on CUDA
+tensors it launches the kernel. `launches[name]` counts the wrapper calls
+that launch kernel `name`: one per `prop_step`, `prop_seq` or `prop_all`
+call, whatever the number of steps or phases inside it.
 """
 
 from __future__ import annotations
@@ -42,13 +46,19 @@ from pathlib import Path
 
 import torch
 
-from .labelprop import _affinity, _chunk_lists, _label_chain, _winners_all_frames
+from .labelprop import (
+    _affinity,
+    _chunk_lists,
+    _label_chain,
+    _weights_all_frames,
+    _winners_all_frames,
+)
 from .labelprop import _prop_step as prop_step_reference
 from .labelprop import propagate_all_reference, propagate_seq_reference
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu" for name in ("prop_step", "prop_seq", "prop_all")}
-HEADERS = tuple(CSRC / h for h in ("prop_common.cuh", "prop_cluster.cuh", "prop_tile.cuh"))
+HEADERS = tuple(CSRC / h for h in ("prop_common.cuh", "prop_tile.cuh", "prop_frames.cuh"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -56,7 +66,7 @@ NVCC_FLAGS = (
 )
 
 TILE_QUERIES, TILE_ROWS = 64, 128  # csrc/prop_tile.cuh: kQ, kR
-MAX_KNN = 256  # csrc/prop_tile.cuh: 32 * kMaxListChunks, for prop_step and prop_seq
+MAX_KNN = 256  # csrc/prop_tile.cuh: 32 * kMaxListChunks, for every kernel
 
 launches = {name: 0 for name in SOURCES}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -112,24 +122,20 @@ def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         lib = ctypes.CDLL(str(build()[name]))
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        whole_sequence = {  # csrc/prop_frames.cuh, bound by prop_seq.cu and prop_all.cu
+            "select_launch": ([p] * 5 + [i] * 6 + [f] + [i] * 3 + [p], i),
+            "chain_launch": ([p] * 3 + [i] * 6 + [p], i),
+            "select_smem_bytes": ([i] * 2, ll),
+            "chain_smem_bytes": ([i] * 5, ll),
+        }
         signatures = {
             "prop_step": {
                 "launch": ([p] * 8 + [i] * 3 + [f] + [i] * 5 + [p], i),
                 "smem_bytes": ([i], ll),
                 "wave": ([i], i),
             },
-            "prop_seq": {
-                "select_launch": ([p] * 5 + [i] * 6 + [f] + [i] * 3 + [p], i),
-                "chain_launch": ([p] * 3 + [i] * 6 + [p], i),
-                "select_smem_bytes": ([i] * 2, ll),
-                "chain_smem_bytes": ([i] * 5, ll),
-            },
-            "prop_all": {
-                "launch": ([p] * 5 + [i] * 7 + [f] + [i] * 4 + [p], i),
-                "cluster_size": ([i] * 7, i),
-                "smem_bytes": ([i] * 5, ll),
-                "scratch_floats": ([i] * 3, ll),
-            },
+            "prop_seq": dict(whole_sequence),
+            "prop_all": dict(whole_sequence),
         }[name]
         signatures.update({"max_dynamic_smem": ([], i), "max_classes": ([], i),
                            "error_string": ([i], ctypes.c_char_p)})
@@ -306,8 +312,17 @@ def prop_step_tiles(feats, query, mask, slot_bias, temperature: float, knn: int,
 
 
 def unpack_sources(src, N: int):
-    """`prop_seq_select`'s sources -> (frame f, node i); f = -1: no label."""
+    """The sources of `prop_seq_select` and `prop_all_weights` -> (frame f,
+    node i); f = -1: no label."""
     return src // N - 1, src % N
+
+
+# The whole-sequence kernels: name -> (twin of the whole propagation, twin
+# of its lists, whether its chain sums weights only).
+_WHOLE_SEQUENCE = {
+    "prop_seq": (propagate_seq_reference, _winners_all_frames, False),
+    "prop_all": (propagate_all_reference, _weights_all_frames, True),
+}
 
 
 def _seq_checks(emb, mask, knn: int, cxt: int):
@@ -320,61 +335,112 @@ def _seq_checks(emb, mask, knn: int, cxt: int):
         raise ValueError(f"cxt must be >= 1, got {cxt}")
 
 
-def _select_launch(emb, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
-    """Phase A on CUDA tensors: (src, e), (B, T - 1, N, knn) each."""
+def _select_launch(name: str, emb, mask, long_mem: tuple, cxt: int, temperature: float,
+                   knn: int):
+    """Kernel `name`'s selection on CUDA tensors: (src, values),
+    (B, T - 1, N, knn) each."""
     B, T, N, C = emb.shape
     dev = emb.device
     L = len(long_mem)
     ns_max = L + min(T - 1, cxt)
-    _check_smem("prop_seq", dev, _ask("prop_seq", dev, "select_smem_bytes", knn, ns_max),
+    _check_smem(name, dev, _ask(name, dev, "select_smem_bytes", knn, ns_max),
                 f"the running lists of knn={knn}")
     src = torch.empty((B, T - 1, N, knn), dtype=torch.int32, device=dev)
-    e = torch.empty((B, T - 1, N, knn), dtype=torch.float32, device=dev)
+    vals = torch.empty((B, T - 1, N, knn), dtype=torch.float32, device=dev)
     if T == 1 or B == 0:
-        return src, e
+        return src, vals
     pins = _pins(tuple(long_mem), dev)
-    lib = _library("prop_seq")
+    lib = _library(name)
     with _on(dev):
-        err = lib.prop_seq_select_launch(
-            emb.data_ptr(), mask.data_ptr(), pins.data_ptr(), src.data_ptr(), e.data_ptr(),
+        err = getattr(lib, f"{name}_select_launch")(
+            emb.data_ptr(), mask.data_ptr(), pins.data_ptr(), src.data_ptr(), vals.data_ptr(),
             B, T, N, C, L, int(cxt), float(temperature), int(knn), ns_max, _vec4(C, emb),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, "prop_seq", err)
-    return src, e
+    _raise_on(lib, name, err)
+    return src, vals
 
 
-def _chain_launch(src, e, soft):
-    """Phase B on CUDA tensors: soft (B, T, N, M) frames 1.. from the lists,
-    frame 0 holding the seeds."""
+def _chain_launch(name: str, src, vals, soft):
+    """Kernel `name`'s chain on CUDA tensors: soft (B, T, N, M) frames 1..
+    from the lists, frame 0 holding the seeds."""
     B, T, N, M = soft.shape
     knn = src.shape[-1]
     dev = soft.device
     if T == 1 or B == 0:
         return soft
-    in_smem = int(_ask("prop_seq", dev, "chain_smem_bytes", T, N, M, knn, 1)
-                  <= _smem_limit("prop_seq", dev))
+    in_smem = int(_ask(name, dev, "chain_smem_bytes", T, N, M, knn, 1) <= _smem_limit(name, dev))
     if not in_smem:
-        _check_smem("prop_seq", dev, _ask("prop_seq", dev, "chain_smem_bytes", T, N, M, knn, 0),
+        _check_smem(name, dev, _ask(name, dev, "chain_smem_bytes", T, N, M, knn, 0),
                     f"one frame's lists of N={N} x knn={knn}")
-    lib = _library("prop_seq")
+    lib = _library(name)
     with _on(dev):
-        err = lib.prop_seq_chain_launch(
-            src.data_ptr(), e.data_ptr(), soft.data_ptr(), B, T, N, M, knn, in_smem,
+        err = getattr(lib, f"{name}_chain_launch")(
+            src.data_ptr(), vals.data_ptr(), soft.data_ptr(), B, T, N, M, knn, in_smem,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(lib, "prop_seq", err)
+    _raise_on(lib, name, err)
     return soft
 
 
-def _seed_frame(seeds, B: int, T: int, N: int, knn: int, device: torch.device):
+def _seed_frame(name: str, seeds, B: int, T: int, N: int, knn: int, device: torch.device):
     """soft (B, T, N, M) on `device` with frame 0 the seeds, the rest to be
     written."""
     M = seeds.shape[-1]
     _check("seeds", seeds, (B, N, M), device)
-    _check_common("prop_seq", device, knn, M)
+    _check_common(name, device, knn, M)
     soft = torch.empty((B, T, N, M), dtype=torch.float32, device=device)
     soft[:, 0] = seeds
+    return soft
+
+
+def _whole_sequence(name: str, emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float,
+                    knn: int):
+    """`prop_seq` or `prop_all`: the twin on CPU tensors, else the selection
+    and the chain of kernel `name`, one count."""
+    if emb.device.type == "cpu":
+        return _WHOLE_SEQUENCE[name][0](emb, seeds, mask, long_mem, cxt, temperature, knn)
+    B, T, N, _ = emb.shape
+    _seq_checks(emb, mask, knn, cxt)
+    soft = _seed_frame(name, seeds, B, T, N, knn, emb.device)
+    if T == 1 or B == 0:
+        return soft
+    src, vals = _select_launch(name, emb, mask, tuple(long_mem), cxt, temperature, knn)
+    _chain_launch(name, src, vals, soft)
+    launches[name] += 1
+    return soft
+
+
+def _select(name: str, emb, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """Kernel `name`'s selection alone: (src, values); the lists' twin on
+    CPU tensors."""
+    N = emb.shape[2]
+    if emb.device.type == "cpu":
+        f, i, vals = _WHOLE_SEQUENCE[name][1](emb, mask, tuple(long_mem), cxt, temperature, knn)
+        return ((f + 1) * N + i).to(torch.int32), vals
+    _seq_checks(emb, mask, knn, cxt)
+    lists = _select_launch(name, emb, mask, tuple(long_mem), cxt, temperature, knn)
+    if emb.shape[1] > 1 and emb.shape[0] > 0:
+        launches[name] += 1
+    return lists
+
+
+def _chain(name: str, src, vals, seeds):
+    """Kernel `name`'s chain alone from its selection's lists; `_label_chain`
+    on CPU tensors."""
+    B, T1, N, knn = src.shape
+    if src.device.type == "cpu":
+        f, i = unpack_sources(src.long(), N)
+        return _label_chain((f, i, vals), seeds, weights_only=_WHOLE_SEQUENCE[name][2])
+    for what, x, dtype in (("src", src, torch.int32), ("values", vals, torch.float32)):
+        if x.device != src.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{what}: need a contiguous {dtype} tensor on {src.device}")
+    if vals.shape != src.shape:
+        raise ValueError(f"values: expected shape {tuple(src.shape)}, got {tuple(vals.shape)}")
+    soft = _seed_frame(name, seeds, B, T1 + 1, N, knn, src.device)
+    _chain_launch(name, src, vals, soft)
+    if T1 > 0 and B > 0:
+        launches[name] += 1
     return soft
 
 
@@ -384,34 +450,16 @@ def prop_seq(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, kn
     the seeds. CPU tensors take the plain twin; CUDA tensors launch the
     kernel's two phases (every frame's winners, then the label chain),
     counted as one launch (none when T == 1); knn <= MAX_KNN."""
-    if emb.device.type == "cpu":
-        return propagate_seq_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
-    B, T, N, _ = emb.shape
-    _seq_checks(emb, mask, knn, cxt)
-    soft = _seed_frame(seeds, B, T, N, knn, emb.device)
-    if T == 1 or B == 0:
-        return soft
-    src, e = _select_launch(emb, mask, tuple(long_mem), cxt, temperature, knn)
-    _chain_launch(src, e, soft)
-    launches["prop_seq"] += 1
-    return soft
+    return _whole_sequence("prop_seq", emb, seeds, mask, long_mem, cxt, temperature, knn)
 
 
 def prop_seq_select(emb, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
     """`prop_seq`'s phase A alone: every frame's winner lists (src, e),
-    (B, T - 1, N, knn) each, src = (f + 1) * N + i for node i of frame f
-    (`unpack_sources`; f = -1 reads no label). CPU tensors take the plain
-    twin (`_winners_all_frames`); CUDA tensors launch phase A (one count of
-    `prop_seq`)."""
-    N = emb.shape[2]
-    if emb.device.type == "cpu":
-        f, i, e = _winners_all_frames(emb, mask, tuple(long_mem), cxt, temperature, knn)
-        return ((f + 1) * N + i).to(torch.int32), e
-    _seq_checks(emb, mask, knn, cxt)
-    lists = _select_launch(emb, mask, tuple(long_mem), cxt, temperature, knn)
-    if emb.shape[1] > 1 and emb.shape[0] > 0:
-        launches["prop_seq"] += 1
-    return lists
+    (B, T - 1, N, knn) each, in winner order, src = (f + 1) * N + i for node
+    i of frame f (`unpack_sources`; f = -1 reads no label). CPU tensors take
+    the plain twin (`_winners_all_frames`); CUDA tensors launch phase A (one
+    count of `prop_seq`)."""
+    return _select("prop_seq", emb, mask, long_mem, cxt, temperature, knn)
 
 
 def prop_seq_chain(src, e, seeds):
@@ -419,71 +467,32 @@ def prop_seq_chain(src, e, seeds):
     lists and seeds (B, N, M) -> soft (B, T, N, M). CPU tensors take the
     plain twin (`_label_chain`); CUDA tensors launch phase B (one count of
     `prop_seq`)."""
-    B, T1, N, knn = src.shape
-    if src.device.type == "cpu":
-        f, i = unpack_sources(src.long(), N)
-        return _label_chain((f, i, e), seeds)
-    for name, x, dtype in (("src", src, torch.int32), ("e", e, torch.float32)):
-        if x.device != src.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor on {src.device}")
-    if e.shape != src.shape:
-        raise ValueError(f"e: expected shape {tuple(src.shape)}, got {tuple(e.shape)}")
-    soft = _seed_frame(seeds, B, T1 + 1, N, knn, src.device)
-    _chain_launch(src, e, soft)
-    if T1 > 0 and B > 0:
-        launches["prop_seq"] += 1
-    return soft
+    return _chain("prop_seq", src, e, seeds)
 
 
 def prop_all(emb, seeds, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
     """`prop_seq` with the weight arithmetic of the TPU resident kernel
     (ops/labelprop._prop_all_step_batched): same arguments and result.
     CPU tensors take the plain twin `propagate_all_reference`; CUDA tensors
-    launch the kernel once (none when T == 1)."""
-    if emb.device.type == "cpu":
-        return propagate_all_reference(emb, seeds, mask, long_mem, cxt, temperature, knn)
-    B, T, N, C = emb.shape
-    M = seeds.shape[-1]
-    dev = emb.device
-    _check("emb", emb, (B, T, N, C), dev)
-    _check("seeds", seeds, (B, N, M), dev)
-    _check("mask", mask, (N, N), dev)
-    lib = _library("prop_all")
-    _check_common("prop_all", dev, knn, M)
-    if cxt < 1:
-        raise ValueError(f"cxt must be >= 1, got {cxt}")
-    soft = torch.empty((B, T, N, M), dtype=torch.float32, device=dev)
-    soft[:, 0] = seeds
-    if T == 1 or B == 0:
-        return soft
-    L = len(long_mem)
-    ns_max = L + min(T - 1, cxt)
-    pins = _pins(tuple(long_mem), dev)
-    vec4 = int(C % 4 == 0 and emb.data_ptr() % 16 == 0)
+    launch the kernel's steps (every frame's selection with its weights in
+    row order, then the weights-only chain), counted as one launch (none
+    when T == 1); knn <= MAX_KNN."""
+    return _whole_sequence("prop_all", emb, seeds, mask, long_mem, cxt, temperature, knn)
 
-    def fn(f, *args):
-        return getattr(lib, f"prop_all_{f}")(*args)
 
-    with _on(dev):
-        in_smem = fn("smem_bytes", C, N, ns_max, knn, 0) <= _smem_limit("prop_all", dev)
-        # CTAs per radargram (a thread-block cluster), from B, N and the card
-        ncl = fn("cluster_size", B, N, C, ns_max, knn, int(not in_smem), vec4)
-        if ncl < 1:
-            raise RuntimeError("prop_all: cannot size the launch's clusters")
-        # the affinity columns and the winner lists live in shared memory
-        # when they fit, else in this scratch, one area per CTA
-        gscratch = (
-            None if in_smem
-            else torch.empty((B * ncl, fn("scratch_floats", N, ns_max, knn)),
-                             dtype=torch.float32, device=dev)
-        )
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            "launch", emb.data_ptr(), mask.data_ptr(), pins.data_ptr(), soft.data_ptr(),
-            None if gscratch is None else gscratch.data_ptr(),
-            B, T, N, C, M, L, int(cxt), float(temperature), int(knn), ns_max, ncl, vec4,
-            stream,
-        )
-    _raise_on(lib, "prop_all", err)
-    launches["prop_all"] += 1
-    return soft
+def prop_all_weights(emb, mask, long_mem: tuple, cxt: int, temperature: float, knn: int):
+    """`prop_all`'s steps 1 and 2 alone: every frame's lists (src, w),
+    (B, T - 1, N, knn) each, src as `prop_seq_select`'s, w_j = e_j / den with
+    den summed in winner order, the entries in ascending candidate row and
+    the padding last. CPU tensors take the plain twin
+    (`_weights_all_frames`); CUDA tensors launch the selection (one count of
+    `prop_all`)."""
+    return _select("prop_all", emb, mask, long_mem, cxt, temperature, knn)
+
+
+def prop_all_chain(src, w, seeds):
+    """`prop_all`'s step 3 alone: the weights-only label chain from
+    `prop_all_weights`' lists and seeds (B, N, M) -> soft (B, T, N, M). CPU
+    tensors take the plain twin (`_label_chain(..., weights_only=True)`);
+    CUDA tensors launch the chain (one count of `prop_all`)."""
+    return _chain("prop_all", src, w, seeds)

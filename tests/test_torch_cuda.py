@@ -24,6 +24,7 @@ from radar_sounder_crw_tpu_torch.ops.labelprop import (
     _chunk_lists,
     _label_chain,
     _prop_step,
+    _weights_all_frames,
     _winners_all_frames,
     propagate_labels,
     propagate_all_reference,
@@ -229,7 +230,7 @@ def test_cuda_seq_refuses_cpu_tensors_and_devices(cuda):
         (2, 8, 16, 16, 40, 4, 4, 0.1, 5, (0,), False),  # more classes than a warp's lanes
         (2, 10, 24, 32, 4, 6, 5, 0.1, 6, (0, 3), True),  # dyadic ties
         (2, 12, 40, 7, 3, 20, 9, 0.05, 20, (0,), False),  # C not a multiple of 4
-        (2, 40, 190, 128, 6, 100, 60, 0.01, 20, (0,), False),  # work area in global scratch
+        (2, 40, 190, 128, 6, 100, 60, 0.01, 20, (0,), False),  # MC3 width: labels in global memory
     ],
 )
 def test_resident_kernel_equals_its_twin(cuda, B, T, N, C, M, cxt, radius, temp, knn, long_mem,
@@ -247,6 +248,35 @@ def test_resident_kernel_equals_its_twin(cuda, B, T, N, C, M, cxt, radius, temp,
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize(
+    "B,T,N,C,M,cxt,radius,temp,knn,long_mem,ties",
+    [
+        (3, 12, 24, 32, 4, 4, 5, 0.07, 6, (0, 2), False),  # a wrapping ring with pins
+        (4, 30, 50, 128, 6, 10, 10, 0.1, 20, (0, 3), True),  # dyadic ties at survey width
+        (2, 6, 5, 8, 3, 2, 3, 0.07, 40, (0,), False),  # knn above the candidate count
+        (2, 9, 70, 36, 3, 4, 5, 0.07, 70, (0, 2), True),  # two query tiles, knn above 64
+    ],
+)
+def test_resident_steps_equal_their_twins(cuda, B, T, N, C, M, cxt, radius, temp, knn, long_mem,
+                                          ties):
+    """The selection's weight lists (w = e / den, ascending candidate row)
+    equal `_weights_all_frames` exactly, and the weights-only chain on them
+    equals `_label_chain(..., weights_only=True)` and `prop_all` bit for bit."""
+    emb, seeds = _seq_inputs(B, T, N, C, M, 7, cuda)
+    if ties:
+        emb = torch.round(emb * 4) / 2
+    mask = torch.as_tensor(radius_mask(N, 1, radius), device=cuda)
+    before = labelprop_cuda.launches["prop_all"]
+    src, w = labelprop_cuda.prop_all_weights(emb, mask, long_mem, cxt, temp, knn)
+    f, i, w_want = _weights_all_frames(emb, mask, long_mem, cxt, temp, knn)
+    got_f, got_i = labelprop_cuda.unpack_sources(src.long(), N)
+    assert torch.equal(got_f, f) and torch.equal(got_i, i) and torch.equal(w, w_want)
+    soft = labelprop_cuda.prop_all_chain(src, w, seeds)
+    assert labelprop_cuda.launches["prop_all"] == before + 2
+    assert torch.equal(soft, _label_chain((f, i, w_want), seeds, weights_only=True))
+    assert torch.equal(soft, labelprop_cuda.prop_all(emb, seeds, mask, long_mem, cxt, temp, knn))
+
+
 def test_resident_kernel_single_frame_and_bad_inputs(cuda):
     emb, seeds = _seq_inputs(2, 1, 6, 8, 3, 1, cuda)
     mask = torch.as_tensor(radius_mask(6, 1, 3), device=cuda)
@@ -261,7 +291,11 @@ def test_resident_kernel_single_frame_and_bad_inputs(cuda):
         labelprop_cuda.prop_all(emb, torch.zeros((2, 6, 200), device=cuda), mask, (0,), 4, 0.1, 3)
     with pytest.raises(ValueError, match="knn"):
         labelprop_cuda.prop_all(emb, seeds, mask, (0,), 4, 0.1, 0)
-    assert labelprop_cuda.launches["prop_all"] == before
+    # the tile core's lists hold knn <= 256: above it the kernel raises
+    with pytest.raises(ValueError, match=r"knn must lie in \[1, 256\]"):
+        labelprop_cuda.prop_all(emb, seeds, mask, (0,), 4, 0.1, 257)
+    labelprop_cuda.prop_all(emb, seeds, mask, (0,), 4, 0.1, 256)
+    assert labelprop_cuda.launches["prop_all"] == before + 1
 
 
 def test_cuda_resident_route_agrees_with_cuda(cuda):
