@@ -62,20 +62,44 @@ Phases, one line each, any failure exits non-zero:
      per-frame-kernel survey propagation, a batched torch.bmm of the
      saturated affinity product as a yardstick, and the device's busy time
      by kernel over one survey call (torch.profiler);
-  9. a JSON line describing each kernel, the card's name and power limit,
+  9. auto_limits: propagate_labels_batched under kernel="auto" with
+     knn = 300, above every kernel's limit, on a small survey shape: it
+     resolves to the plain route before any launch (no launch counted), its
+     maps equal the CPU plain route's, and the same call with a kernel named
+     ("cuda_seq", "cuda") raises ValueError;
+ 10. cli: the user's own command at full width,
+     `python -m radar_sounder_crw_tpu_torch.cli.test_all --dataset 1
+     --model 1 --batched --correction --use_last --no_plots
+     --allow_untrained` (the synthetic Miguel line, seq_length 100, 16x16
+     patches, overlap (8, 0), cxt 100, radius 10, temperature 0.1, knn 20),
+     once as it is and once with --kernel torch: exit 0, `mIoU:` printed,
+     >= 99.5 % equal predicted maps, each run's wall time; then the same
+     arguments through cli.test_all.main in this process for the launches
+     of the default route, prop_seq once per survey call (forward, each
+     correction bucket, reverse);
+ 11. annotate: `python -m radar_sounder_crw_tpu_torch.cli.annotate
+     --dataset 3 --allow_untrained` over stdin: load window 0, seed from the
+     ground truth, reseed at frame 40, metrics, info, quit; every reply ok,
+     the seed's and the reseed's wall ms; then the same session in this
+     process for its prop_step launches;
+ 12. a JSON line describing each kernel, the card's name and power limit,
      and the final {"ok": true, ...} line.
 
 Launch counts are set to 0 just before each path is driven and read just
-after it: the default main path (phases 3 and 7) and the cuda_resident one.
+after it: the default main path (phases 3 and 7), the cuda_resident one,
+the auto_limits call and the two entry points of phases 10 and 11.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -441,6 +465,157 @@ def survey_phase(smi):
           + f" | prop_seq and prop_all GFLOP={ops / 1e9:.2f} MB={nbytes / 1e6:.1f} bound by "
           + f"{bound_by} | encode peak memory {peak_gb:.2f} GB")
     return main_launches, resident_launches, bound_by, times
+
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+CLI_ARGS = ["--dataset", "1", "--model", "1", "--batched", "--correction", "--use_last",
+            "--no_plots", "--allow_untrained"]
+
+
+def auto_limits_phase():
+    """Phase 9: 'auto' past the kernels' knn limit takes the plain route on
+    the card, decided before any launch; a named kernel raises."""
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+    from radar_sounder_crw_tpu_torch.ops.labelprop import LabelPropConfig, propagate_labels_batched
+
+    emb, seeds = seq_inputs(4, 100, 50, 128, 6, 300)
+    cfg = LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=300)
+    reset_launches()
+    soft, pred = propagate_labels_batched(emb, seeds, cfg)
+    torch.cuda.synchronize()
+    launched = dict(labelprop_cuda.launches)
+    want, want_pred = propagate_labels_batched(emb.cpu(), seeds.cpu(), cfg, device="cpu")
+    err = (soft.cpu() - want).abs().max().item()
+    same = torch.equal(pred.cpu(), want_pred)
+    refused = []
+    for kernel in ("cuda_seq", "cuda"):
+        try:
+            propagate_labels_batched(emb, seeds, cfg, kernel=kernel)
+        except ValueError as e:
+            refused.append(f"{kernel}: {e}")
+    phase("auto_limits", f"knn=300 B=4 T=100 N=50: auto on {soft.device}, launches {launched}, "
+          f"maps equal to the CPU plain route={same}, max |soft diff|={err:.3e}; named kernels "
+          f"refused: {refused}")
+    if (soft.device.type != "cuda" or any(launched.values()) or not same or err > STEP_ATOL
+            or len(refused) != 2):
+        raise SystemExit("auto past the kernels' limits did not take the plain route alone")
+    return launched
+
+
+def survey_launches(run):
+    """Launches of every kernel by survey call while `run()` drives an entry
+    point in this process: {kernel: total}, [{kernel: n} per survey call]."""
+    from radar_sounder_crw_tpu_torch.infer import PropagationPipeline
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+
+    per_call = []
+    survey = PropagationPipeline.propagate_survey
+
+    def counted(self, *args, **kwargs):
+        before = dict(labelprop_cuda.launches)
+        result = survey(self, *args, **kwargs)
+        per_call.append({k: v - before[k] for k, v in labelprop_cuda.launches.items()})
+        return result
+
+    PropagationPipeline.propagate_survey = counted
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run()
+        torch.cuda.synchronize()
+    finally:
+        PropagationPipeline.propagate_survey = survey
+    return dict(labelprop_cuda.launches), per_call
+
+
+def cli_phase():
+    """Phase 10: cli.test_all as the user runs it, the default route and
+    --kernel torch, then in this process for the launches."""
+    from radar_sounder_crw_tpu_torch.cli import test_all
+
+    maps, walls = {}, {}
+    for tag, extra in (("auto", []), ("torch", ["--kernel", "torch"])):
+        out = OUT / f"cli_{tag}"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.test_all", *CLI_ARGS, *extra,
+             "--output_folder", str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        walls[tag] = time.perf_counter() - t0
+        miou = [ln for ln in proc.stdout.splitlines() if ln.startswith("mIoU:")]
+        # its own clock, from main's start: inference, then with the report
+        elapsed = [ln.rsplit(":", 1)[1].strip() for ln in proc.stdout.splitlines()
+                   if ln.startswith("Time elapsed")]
+        phase("cli", f"test_all {' '.join(extra) or '(default kernel)'}: exit {proc.returncode}, "
+              f"{walls[tag]:.2f} s wall, from main's start {' s / '.join(elapsed)} s "
+              f"(inference / + metrics), {miou[0] if miou else 'no mIoU line'}")
+        if proc.returncode != 0 or not miou:
+            raise SystemExit(f"cli.test_all {extra} failed:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+        maps[tag] = np.load(out / "predicted_map.npy")
+        for f in ("predicted_map.npy", "predicted_map.pt"):  # 41 MB each: not brought back
+            (out / f).unlink()
+    agree = float((maps["auto"] == maps["torch"]).mean())
+    phase("cli", f"predicted maps {maps['auto'].shape} {maps['auto'].dtype}: default vs "
+          f"--kernel torch agreement={agree:.5f}")
+    if maps["auto"].shape != maps["torch"].shape or agree < MAP_AGREEMENT:
+        raise SystemExit("cli.test_all: the default route disagrees with --kernel torch")
+
+    out = OUT / "cli_launches"
+    args = test_all.get_args_parser().parse_args([*CLI_ARGS, "--output_folder", str(out)])
+    launched, per_call = survey_launches(lambda: test_all.main(args))
+    for f in ("predicted_map.npy", "predicted_map.pt"):
+        (out / f).unlink()
+    per_pass = [c["prop_seq"] for c in per_call]
+    phase("cli", f"default route in process: launches {launched}, prop_seq per survey call "
+          f"{per_pass} (forward, {len(per_call) - 2} correction buckets, reverse)")
+    if (len(per_call) < 2 or per_pass != [1] * len(per_call)
+            or launched["prop_seq"] != len(per_call) or launched["prop_step"]
+            or launched["prop_all"]):
+        raise SystemExit("cli.test_all --batched did not launch prop_seq once per survey call")
+    return launched, {"cli_test_all_s": walls["auto"], "cli_test_all_torch_s": walls["torch"],
+                      "cli_map_agreement": agree}
+
+
+def annotate_phase():
+    """Phase 11: the annotation server over stdin, then the same session in
+    this process for its launches."""
+    from radar_sounder_crw_tpu_torch.cli import annotate
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+
+    cmds = [{"cmd": "load", "window": 0}, {"cmd": "seed", "seg": "gt"},
+            {"cmd": "reseed", "frame": 40, "seg": "gt"}, {"cmd": "metrics"}, {"cmd": "info"},
+            {"cmd": "quit"}]
+    base = ["--dataset", "3", "--allow_untrained"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.annotate", *base],
+        input="".join(json.dumps(c) + "\n" for c in cmds), cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    replies = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.strip()]
+    ok = proc.returncode == 0 and len(replies) == 1 + len(cmds) and all(r["ok"] for r in replies)
+    phase("annotate", f"exit {proc.returncode}, replies ok {[r.get('ok') for r in replies]}; "
+          + "; ".join(json.dumps(r) for r in replies[1:]))
+    if not ok:
+        raise SystemExit(f"cli.annotate session failed:\n{proc.stdout[-2000:]}\n"
+                         f"{proc.stderr[-4000:]}")
+    ms = {"annotate_seed_ms": replies[2]["ms"], "annotate_reseed_ms": replies[3]["ms"]}
+
+    session = annotate.AnnotationSession(annotate.get_args_parser().parse_args(base))
+    session.handle(json.dumps(cmds[0]))
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        replies = [session.handle(json.dumps(c)) for c in cmds[1:3]]
+    torch.cuda.synchronize()
+    launched = dict(labelprop_cuda.launches)
+    T = session.seq.shape[0]
+    want = (T - 1) + (-(-(T - 40) // 16) * 16 - 1)  # seed, then the reseed's padded tail
+    phase("annotate", f"in process: seed {replies[0]['ms']} ms, reseed {replies[1]['ms']} ms, "
+          f"launches {launched} (expected prop_step {want})")
+    if (not all(r["ok"] for r in replies) or launched["prop_step"] != want
+            or launched["prop_seq"] or launched["prop_all"]):
+        raise SystemExit("cli.annotate did not launch prop_step once per frame")
+    return launched, ms
 
 
 def main() -> int:
@@ -820,7 +995,14 @@ def main() -> int:
     if mc3_launches["prop_all"] + survey_main["prop_all"] != 0:
         raise SystemExit("kernel='auto' reached prop_all")
 
-    # 9. results ----------------------------------------------------------------
+    # 9-11. auto past the limits, the entry points -----------------------------
+    auto_launches = auto_limits_phase()
+    cli_launches, cli_times = cli_phase()
+    annotate_launches, annotate_ms = annotate_phase()
+    cli_times.update(annotate_ms)
+    phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in cli_times.items()))
+
+    # 12. results ---------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "prop_step",
@@ -839,6 +1021,9 @@ def main() -> int:
         "merge_ms": times["kernel_merge_ms_per_launch"],
         "ms_per_seed_to_map": times["kernel_ms_per_seed_to_map"],
         "bound_ms_per_seed_to_map": times["kernel_bound_ms_per_seed_to_map"],
+        "launches_annotate": annotate_launches["prop_step"],
+        "launches_cli_test_all": cli_launches["prop_step"],
+        "launches_auto_limits": auto_launches["prop_step"],
     }, {
         "name": "prop_seq",
         "route": "cuda",
@@ -854,6 +1039,9 @@ def main() -> int:
         "affinity_bmm_ms": survey_times["affinity_bmm_ms"],
         "phase_a_ms": survey_times["prop_seq_phase_a_ms"],
         "phase_b_ms": survey_times["prop_seq_phase_b_ms"],
+        "launches_cli_test_all": cli_launches["prop_seq"],
+        "launches_annotate": annotate_launches["prop_seq"],
+        "launches_auto_limits": auto_launches["prop_seq"],
     }, {
         "name": "prop_all",
         "route": "cuda",
@@ -878,7 +1066,10 @@ def main() -> int:
         "chain_ms_mc3_b1": times["prop_all_mc3_chain_ms"],
         "plain_ms_mc3_b1": times["prop_all_mc3_plain_twin_ms"],
         "bound_ms_mc3_b1": times["prop_all_mc3_bound_ms"],
-    }], "times": times, "survey_times": survey_times}))
+        "launches_cli_test_all": cli_launches["prop_all"],
+        "launches_annotate": annotate_launches["prop_all"],
+        "launches_auto_limits": auto_launches["prop_all"],
+    }], "times": times, "survey_times": survey_times, "cli_times": cli_times}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,3 +1,4 @@
+from .checkpoint import load_torch_checkpoint, read_state_dict
 from .encoders import CNNEncoder, ResNetEncoder, create_model, param_count
 from .resnet import BasicBlock, ResNetCore
 from .weights import state_dict_from_jax
@@ -8,6 +9,8 @@ __all__ = [
     "ResNetCore",
     "ResNetEncoder",
     "create_model",
+    "load_torch_checkpoint",
     "param_count",
+    "read_state_dict",
     "state_dict_from_jax",
 ]

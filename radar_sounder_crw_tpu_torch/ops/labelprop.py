@@ -135,7 +135,7 @@ def _affinity(feats, query, mask, slot_bias, temperature: float, nslots: int):
     temp = torch.full((), temperature, dtype=torch.float32, device=feats.device)
     aff = torch.einsum("bknc,bmc->bknm", feats[:, :nslots], query)
     aff = (aff + mask + slot_bias[:nslots, None, None]) / temp
-    return aff.reshape(B, nslots * N, N).transpose(1, 2)
+    return aff.reshape(B, nslots * N, query.shape[1]).transpose(1, 2)
 
 
 def _chunk_lists(flat, knn: int, chunk: int):
@@ -185,19 +185,20 @@ def _prop_step_batched(feats, query, mask, slot_bias, labels, temperature: float
     """One propagation frame for B radargrams in plain PyTorch: the twin of
     the `prop_step` and `prop_seq` kernels.
 
-    feats (B, K, N, C); query (B, N, C); mask (N_src, N_query) additive;
-    slot_bias (K,) additive per slot; labels (B, K, N, M). Only the first
-    `nslots` slots are read. Returns pred (B, N, M).
+    feats (B, K, N, C); query (B, Nq, C), all N query nodes or a block of
+    them (`_query_blocks`); mask (N, Nq) additive; slot_bias (K,) additive
+    per slot; labels (B, K, N, M). Only the first `nslots` slots are read.
+    Returns pred (B, Nq, M).
 
     The winners come from `_winners`. The softmax-weighted sum runs winner
     by winner, e_j = exp(v_j - v_0), num += e_j * label_j, den += e_j,
     pred = num / den: the order and the roundings of the kernels
     (csrc/prop_common.cuh)."""
-    B, _, N, _ = feats.shape
+    B, Nq = query.shape[:2]
     idx, e = _winners(feats, query, mask, slot_bias, temperature, knn, nslots)
-    src = _gather_labels(labels, idx, nslots)  # (B, N, k, M)
-    num = torch.zeros((B, N, labels.shape[-1]), dtype=torch.float32, device=feats.device)
-    den = torch.zeros((B, N, 1), dtype=torch.float32, device=feats.device)
+    src = _gather_labels(labels, idx, nslots)  # (B, Nq, k, M)
+    num = torch.zeros((B, Nq, labels.shape[-1]), dtype=torch.float32, device=feats.device)
+    den = torch.zeros((B, Nq, 1), dtype=torch.float32, device=feats.device)
     for j in range(idx.shape[-1]):
         num = num + e[..., j, None] * src[..., j, :]
         den = den + e[..., j, None]
@@ -408,7 +409,8 @@ def resolve_kernel(kernel: str, device: torch.device, batched: bool = False) -> 
     """'auto' -> on a CUDA device 'cuda' (one radargram) or 'cuda_seq' (a
     batch), on the CPU 'torch'; never 'cuda_resident', which is chosen by
     name only. Names outside KERNELS raise, and so does a CUDA kernel on a
-    CPU device: nothing switches quietly."""
+    CPU device: nothing switches quietly. The call's own limits can still
+    send 'auto' to the plain route (`_route`)."""
     if kernel == "auto":
         if device.type != "cuda":
             return "torch"
@@ -420,6 +422,34 @@ def resolve_kernel(kernel: str, device: torch.device, batched: bool = False) -> 
     return kernel
 
 
+def _route(kernel: str, device: torch.device, batched: bool, query_block, T: int, N: int,
+           M: int, knn: int, long_mem: tuple, cxt: int) -> str:
+    """The route of one call, decided before any launch. 'auto' takes the
+    kernel `resolve_kernel` names unless a `query_block` is set or the
+    kernel's limits (knn, classes, shared memory; `labelprop_cuda.fits`)
+    refuse this call's shapes: then the plain route, on the same device,
+    as the JAX package's 'auto' takes XLA where `plan_blocks` finds no
+    plan. A kernel chosen by name is never switched: with a `query_block`
+    it raises here, past its limits its wrapper raises."""
+    auto = kernel == "auto"
+    kernel = resolve_kernel(kernel, device, batched=batched)
+    if kernel == "torch":
+        return kernel
+    if query_block is not None:
+        if not auto:
+            raise ValueError(
+                f"query_block applies to the plain route only (kernel='torch' or 'auto'), "
+                f"not kernel={kernel!r}"
+            )
+        return "torch"
+    if auto:
+        from .labelprop_cuda import fits
+
+        if not fits(kernel, device, T, N, M, knn, len(long_mem), cxt):
+            return "torch"
+    return kernel
+
+
 def _cuda_step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
     """The `prop_step` kernel in `_frame_loop`'s batched signature (B = 1)."""
     from .labelprop_cuda import prop_step
@@ -428,11 +458,30 @@ def _cuda_step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
                      nslots)[None]
 
 
-def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kernel: str):
+def _query_blocks(qb: int):
+    """`_prop_step_batched` over the query nodes in sequential blocks of qb,
+    in `_frame_loop`'s step signature: each block's affinity is
+    (B, nslots*N, qb), so the peak is O(K*N*qb) instead of the (K*N, N)
+    affinity of the whole frame. A query's winners and weighted sum read
+    only its own affinity column, so each block's outputs are the
+    unchunked step's; the last block is shorter and needs no padding."""
+
+    def step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
+        return torch.cat([
+            _prop_step_batched(feats, query[:, i : i + qb], mask[:, i : i + qb], slot_bias,
+                               labels, temperature, knn, nslots)
+            for i in range(0, query.shape[1], qb)
+        ], dim=1)
+
+    return step
+
+
+def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kernel: str,
+               qb: int | None = None):
     """soft (B, T, N, M) through the resolved kernel: 'torch' the plain
-    batched loop, 'cuda' one prop_step launch per frame, radargram by
-    radargram, 'cuda_seq' one prop_seq launch, 'cuda_resident' one prop_all
-    launch."""
+    batched loop (query blocks of qb when set), 'cuda' one prop_step launch
+    per frame, radargram by radargram, 'cuda_seq' one prop_seq launch,
+    'cuda_resident' one prop_all launch."""
     args = (long_mem, cfg.cxt_size, cfg.temperature, knn)
     if kernel == "cuda_seq":
         from .labelprop_cuda import prop_seq
@@ -447,13 +496,15 @@ def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kerne
             _frame_loop(emb[b : b + 1], seeds[b : b + 1], mask, *args, _cuda_step)
             for b in range(emb.shape[0])
         ])
+    if qb is not None:
+        return _frame_loop(emb, seeds, mask, *args, _query_blocks(qb))
     return propagate_seq_reference(emb, seeds, mask, *args)
 
 
 @torch.no_grad()
 def propagate_labels(
     emb, seed_labels, cfg: LabelPropConfig, grid_hw=None, kernel: str = "auto",
-    device=None,
+    device=None, query_block: int | None = None,
 ):
     """Propagate seed labels through a frame sequence.
 
@@ -467,33 +518,38 @@ def propagate_labels(
         per frame), 'cuda_seq' (the whole-sequence kernel, one launch; the
         B = 1 view of `propagate_labels_batched`), 'cuda_resident' (the
         whole-sequence kernel with the TPU resident kernel's weight
-        arithmetic, one launch) or 'auto' ('cuda' on a CUDA device, 'torch'
-        on the CPU).
+        arithmetic, one launch) or 'auto': 'cuda' on a CUDA device where
+        the call fits the kernel's limits (knn <= 256, the class count,
+        shared memory) and no query_block is set, else 'torch'.
       device: where to run; default cuda (raises when CUDA is absent).
+      query_block: plain route only; when set, each frame's query nodes run
+        in sequential blocks of min(query_block, N), bounding the affinity
+        to O(K*N*query_block) instead of (K*N, N). Each query's arithmetic
+        is the unchunked step's (equal bit for bit wherever the affinity's
+        dot products are exact; the BLAS may sum a narrow block's in
+        another order). A CUDA kernel named with it raises.
 
     Returns:
       soft: (T, N, M) float32 soft labels per frame (frame 0 = the seed).
-      pred: (T, N) int64 argmax labels (first maximum on ties).
+      pred: (T, N) int32 argmax labels (first maximum on ties).
     """
     emb = torch.as_tensor(emb, dtype=torch.float32)
     seed = torch.as_tensor(seed_labels, dtype=torch.float32)
-    soft, pred = propagate_labels_batched(
-        emb[None], seed[None], cfg, grid_hw,
-        resolve_kernel(kernel, resolve_device(device)), device=device,
-    )
+    soft, pred = _propagate_labels(emb[None], seed[None], cfg, grid_hw, kernel, None,
+                                   query_block, device, batched=False)
     return soft[0], pred[0]
 
 
 @torch.no_grad()
 def propagate_labels_batched(
     emb, seed_labels, cfg: LabelPropConfig, grid_hw=None, kernel: str = "auto",
-    batch_block: int | None = None, device=None,
+    batch_block: int | None = None, device=None, query_block: int | None = None,
 ):
     """Propagate B radargrams at once: emb (B, T, N, C), seed_labels
-    (B, N, M) -> soft (B, T, N, M), pred (B, T, N).
+    (B, N, M) -> soft (B, T, N, M), pred (B, T, N) int32.
 
-    kernel: as in `propagate_labels`, except that 'auto' is 'cuda_seq' on a
-    CUDA device: one launch of the whole-sequence kernel for the batch
+    kernel: as in `propagate_labels`, except that 'auto' prefers 'cuda_seq'
+    on a CUDA device: one launch of the whole-sequence kernel for the batch
     ('cuda_resident' likewise launches `prop_all` once for the batch).
     'cuda' runs the per-frame kernel radargram by radargram.
 
@@ -501,17 +557,29 @@ def propagate_labels_batched(
     launch per chunk under 'cuda_seq' and 'cuda_resident'), bounding the
     working set; a trailing partial chunk is padded with the first
     radargram and its outputs are dropped. The results equal the unchunked
-    call."""
+    call. query_block: as in `propagate_labels`."""
+    return _propagate_labels(emb, seed_labels, cfg, grid_hw, kernel, batch_block, query_block,
+                             device, batched=True)
+
+
+def _propagate_labels(emb, seed_labels, cfg: LabelPropConfig, grid_hw, kernel: str,
+                      batch_block, query_block, device, batched: bool):
     device = resolve_device(device)
-    kernel = resolve_kernel(kernel, device, batched=True)
     emb = torch.as_tensor(emb, dtype=torch.float32, device=device).contiguous()
     seeds = torch.as_tensor(seed_labels, dtype=torch.float32, device=device).contiguous()
     B, T, N, C = emb.shape
     mask, long_mem = _validate_cfg(cfg, N, grid_hw, device)
     knn = min(cfg.knn, (len(long_mem) + cfg.cxt_size) * N)
+    qb = None
+    if query_block is not None:
+        if int(query_block) < 1:
+            raise ValueError(f"query_block must be >= 1, got {query_block}")
+        qb = min(int(query_block), N)
+    kernel = _route(kernel, device, batched, query_block, T, N, seeds.shape[-1], knn, long_mem,
+                    cfg.cxt_size)
     if batch_block is None:
-        soft = _propagate(emb, seeds, mask, long_mem, cfg, knn, kernel)
-        return soft, soft.argmax(dim=-1)
+        soft = _propagate(emb, seeds, mask, long_mem, cfg, knn, kernel, qb)
+        return soft, soft.argmax(dim=-1).to(torch.int32)
     bb = int(batch_block)
     if bb < 1:
         raise ValueError(f"batch_block must be >= 1, got {batch_block}")
@@ -522,7 +590,7 @@ def propagate_labels_batched(
         emb = torch.cat([emb, emb[:1].expand(pad, *emb.shape[1:])])
         seeds = torch.cat([seeds, seeds[:1].expand(pad, *seeds.shape[1:])])
     soft = torch.cat([
-        _propagate(emb[i : i + bb], seeds[i : i + bb], mask, long_mem, cfg, knn, kernel)
+        _propagate(emb[i : i + bb], seeds[i : i + bb], mask, long_mem, cfg, knn, kernel, qb)
         for i in range(0, n_chunks * bb, bb)
     ])[:B]
-    return soft, soft.argmax(dim=-1)
+    return soft, soft.argmax(dim=-1).to(torch.int32)

@@ -210,6 +210,34 @@ def _check_smem(name: str, device: torch.device, nbytes: int, what: str) -> None
                          f"card's {_smem_limit(name, device)}")
 
 
+_KERNEL_OF_ROUTE = {"cuda": "prop_step", "cuda_seq": "prop_seq", "cuda_resident": "prop_all"}
+
+
+def fits(route: str, device: torch.device, T: int, N: int, M: int, knn: int, L: int,
+         cxt: int) -> bool:
+    """Whether the kernel behind `route` ('cuda', 'cuda_seq' or
+    'cuda_resident') takes a propagation of T frames of N nodes and M
+    classes with knn winners over L pinned and cxt ring slots on `device`:
+    the limits `_check_knn`, `_check_common` and `_check_smem` enforce at
+    launch, answered before one. A CPU device answers False without
+    building or loading a library."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    name = _KERNEL_OF_ROUTE[route]
+    if not 1 <= knn <= MAX_KNN or not 1 <= M <= _ask(name, device, "max_classes"):
+        return False
+    if T < 2:
+        return True
+    limit = _smem_limit(name, device)
+    if name == "prop_step":
+        return _ask(name, device, "smem_bytes", knn) <= limit
+    ns_max = L + min(T - 1, cxt)
+    return (_ask(name, device, "select_smem_bytes", knn, ns_max) <= limit
+            and min(_ask(name, device, "chain_smem_bytes", T, N, M, knn, in_smem)
+                    for in_smem in (1, 0)) <= limit)
+
+
 def _raise_on(lib, name: str, err: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()

@@ -315,3 +315,45 @@ def test_cuda_resident_route_agrees_with_cuda(cuda):
     chunked, _ = propagate_labels_batched(emb, seeds, cfg, kernel="cuda_resident", batch_block=2)
     assert labelprop_cuda.launches["prop_all"] == before + 4
     assert torch.equal(soft, chunked)
+
+
+def test_auto_past_the_limits_takes_the_plain_route(cuda):
+    """knn = 300 is above every kernel's MAX_KNN: 'auto' decides before any
+    launch to run the plain route on the card, equal to the CPU's; a kernel
+    named for the same call still raises."""
+    emb, seeds = _seq_inputs(2, 10, 40, 16, 4, 5, cuda)
+    cfg = LabelPropConfig(cxt_size=8, radius=20, temperature=0.1, knn=300)
+    before = dict(labelprop_cuda.launches)
+    soft, pred = propagate_labels_batched(emb, seeds, cfg)
+    soft1, _ = propagate_labels(emb[0], seeds[0], cfg)
+    assert labelprop_cuda.launches == before
+    want, want_pred = propagate_labels_batched(emb.cpu(), seeds.cpu(), cfg, device="cpu")
+    assert soft.device.type == "cuda" and pred.dtype == torch.int32
+    assert (soft.cpu() - want).abs().max().item() <= ATOL
+    assert torch.equal(pred.cpu(), want_pred)
+    assert (soft1.cpu() - want[0]).abs().max().item() <= ATOL
+    for kernel in ("cuda_seq", "cuda", "cuda_resident"):
+        with pytest.raises(ValueError, match="knn must lie"):
+            propagate_labels_batched(emb, seeds, cfg, kernel=kernel)
+
+
+def test_cli_test_all_batched_matches_the_plain_route(cuda, tmp_path, monkeypatch):
+    """`cli.test_all --batched --correction --use_last` at toy size on the
+    card, default device and kernel, against --kernel torch: the maps agree
+    and the default route launched the whole-sequence kernel."""
+    from radar_sounder_crw_tpu_torch.cli import test_all
+
+    monkeypatch.setenv("RSCRW_DATA_ROOT", "/nonexistent-rscrw-root")
+    monkeypatch.setenv("RSCRW_SYNTH_SCALE", "8")
+    maps = {}
+    for kernel in ("auto", "torch"):
+        before = labelprop_cuda.launches["prop_seq"]
+        args = test_all.get_args_parser().parse_args([
+            "--model", "0", "--dataset", "3", "--seq_length", "8", "-c", "8", "-r", "6",
+            "-k", "5", "--batched", "--correction", "--use_last", "--no_plots",
+            "--allow_untrained", "--kernel", kernel, "--output_folder", str(tmp_path / kernel)])
+        maps[kernel] = test_all.main(args)
+        launched = labelprop_cuda.launches["prop_seq"] - before
+        assert launched >= 2 if kernel == "auto" else launched == 0
+    assert maps["auto"].shape == maps["torch"].shape
+    assert (maps["auto"] == maps["torch"]).mean() >= 0.995

@@ -30,11 +30,21 @@ def _port_modules():
 
 
 def test_every_module_imports_without_jax():
+    """Every module, the entry points under cli/ included, imports with JAX,
+    the JAX package and matplotlib (absent on the card's machine; the plots
+    import it when they draw) all unimportable."""
     mods = ["radar_sounder_crw_tpu_torch", *_port_modules(), "chip_smoke"]
     assert len(mods) >= 15
+    port = "radar_sounder_crw_tpu_torch."
+    for name in ("ops.metrics", "utils.ndiag", "utils.plotting", "data.torch_pt",
+                 "models.checkpoint", "cli._common", "cli._qualitative", "cli.test_all",
+                 "cli.test", "cli.test_mc1", "cli.test_mc3", "cli.test_sharad", "cli.annotate",
+                 "cli.heatmap", "cli.show_grid"):
+        assert port + name in mods, name
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'radar_sounder_crw_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'radar_sounder_crw_tpu',"
+        " 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
