@@ -82,12 +82,43 @@ Phases, one line each, any failure exits non-zero:
      ground truth, reseed at frame 40, metrics, info, quit; every reply ok,
      the seed's and the reseed's wall ms; then the same session in this
      process for its prop_step launches;
- 12. a JSON line describing each kernel, the card's name and power limit,
-     and the final {"ok": true, ...} line.
+ 12. train_vs_cpu: the CRW trainer (float32, TF32 off) on the card
+     against the same trainer on the CPU, one init, one batch schedule
+     (B = 2, T = 5, N = 6): one ResNet-10 step with the two-pass batch
+     variance (the loss within rtol 5e-5) and the one-pass default (5e-4),
+     the running means within rtol 1e-3; then the CNN's 12 steps, each loss
+     within relative 5e-6 for the first 4 and 2e-4 throughout (the CPU
+     tests' tolerances; the ResNet's later steps are printed, not held);
+ 13. crw_step: CRW train steps at bench.py's configuration (B = 8, T = 20,
+     16x16, overlap (8, 0), synthetic SHARAD 912 x 4096 seed 13, N = 113),
+     the batch gathered once on the card, float32 and bfloat16: median ms a
+     step (CUDA events), steps/s, peak memory, the matmul and convolution
+     operations against the peak of their dtype, the device's idle share
+     and largest kernels under torch.profiler over three steps, and the
+     step again with cuDNN choosing its algorithms by timing them
+     (cudnn.benchmark; a measurement, not the port's default);
+ 14-15. train_cli: `python -m radar_sounder_crw_tpu_torch.cli.train
+     --dataset 3 --model 1 --no_plots` at its defaults (synthetic SHARAD
+     912 x 8192, 2 epochs of 62 steps), then with --bf16: exit 0, two epoch
+     lines, `Finished training.`, the wall time;
+ 16. trained_inference: each trained `.pt` loaded strict and run through
+     seed->map on SHARAD window 0 (T = 100, N = 113) on the default route
+     (99 prop_step launches) and the plain route: >= 99.5 % equal maps,
+     equal change indices, the mIoU against the synthetic ground truth;
+ 17-18. unet: UNet steps at scripts/test_unet.py's width and batch (64
+     strips of 912 x 64, 5 classes), float32 and bfloat16, measured as in
+     13; then `python -m radar_sounder_crw_tpu_torch.cli.test_unet --epochs
+     5`, float32 and --bf16 (the script's 100 epochs cut to 5 to keep the
+     run short): exit 0, `mIoU:`, ms a step from the epoch times;
+ 19. a JSON line describing each kernel (with the training phases' numbers
+     under `train_times`), the card's name and power limit, and the final
+     {"ok": true, ...} line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it: the default main path (phases 3 and 7), the cuda_resident one,
-the auto_limits call and the two entry points of phases 10 and 11.
+the auto_limits call, the two entry points of phases 10 and 11 and each
+trained encoder's seed->map in phase 16. The training phases launch none of
+the port's kernels: their work runs in cuDNN and PyTorch's own kernels.
 """
 
 from __future__ import annotations
@@ -618,6 +649,318 @@ def annotate_phase():
     return launched, ms
 
 
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bfloat16 tensor cores, dense
+TRAIN_STEP1_RTOL = 5e-5  # tests/test_torch_train.py: one ResNet step, two-pass variance
+TRAIN_EARLY, TRAIN_ENVELOPE = 5e-6, 2e-4  # tests/test_torch_train.py: CNN K-step losses
+ONEPASS_STEP1_RTOL = 5e-4  # tests/test_torch_train.py: one ResNet step, one-pass variance
+TRAIN_ARGS = ["--dataset", "3", "--model", "1", "--no_plots"]
+UNET_EPOCHS = 5
+
+
+def step_times(step, iters):
+    """Median device ms per call (CUDA events around each call) and host
+    wall ms per call over the same `iters` calls."""
+    pairs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    return statistics.median(s.elapsed_time(e) for s, e in pairs), wall
+
+
+def cudnn_benchmark_times(step, iters):
+    """`step_times` of `step` with cuDNN choosing its convolution algorithms
+    by timing them (torch.backends.cudnn.benchmark) instead of by its
+    heuristics, after three calls for the search; the peak memory beside.
+    The port's default stays the heuristics: this is a measurement only."""
+    torch.backends.cudnn.benchmark = True
+    try:
+        for _ in range(3):
+            step()
+        torch.cuda.reset_peak_memory_stats()
+        ms, wall = step_times(step, iters)
+        return ms, wall, torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+
+def step_flops(step):
+    """Matmul and convolution operations of one call, forward and backward
+    (torch.utils.flop_counter; elementwise work is not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        step()
+    return counter.get_total_flops()
+
+
+def train_vs_cpu_phase():
+    """Phase 12: the CRW trainer on the card against the same trainer on the
+    CPU, float32 with TF32 off, one init, one batch schedule: one ResNet-10
+    step (the loss and every running mean), then the CNN's 12-step
+    trajectory, as tests/test_torch_train.py holds the trainer to JAX's."""
+    from radar_sounder_crw_tpu_torch.train import CRWTrainConfig, CRWTrainer
+
+    B, T, N, hw = 2, 5, 6, (16, 16)
+    rng = np.random.default_rng(0)
+    batches = [rng.standard_normal((B, T, N, *hw)).astype(np.float32) * 0.5 for _ in range(12)]
+
+    def both(model, fused_bn, K):
+        cfg = CRWTrainConfig(model=model, batch_size=B, seq_length=T, lr=1e-3, tau=0.05,
+                             fused_bn=fused_bn)
+        sides = {dev: CRWTrainer(cfg, device=dev) for dev in ("cuda", "cpu")}
+        for tr in sides.values():
+            tr.init_state((T, N, *hw))
+        sides["cuda"].model.load_state_dict(sides["cpu"].model.state_dict(), strict=True)
+        losses = {dev: [float(tr.train_step(batches[0]))] for dev, tr in sides.items()}
+        got, want = (sides[d].model.state_dict() for d in ("cuda", "cpu"))
+        mean_err = max(  # 1.0 = at the tolerance, rtol 1e-3 + atol 1e-3 x max|mean|
+            ((got[n].cpu() - want[n]).abs()
+             / (1e-3 * want[n].abs() + 1e-3 * want[n].abs().max())).max().item()
+            for n in want if n.endswith("running_mean")) if model == 1 else 0.0
+        for b in batches[1:K]:
+            for dev, tr in sides.items():
+                losses[dev].append(float(tr.train_step(b)))
+        rel = np.abs(np.subtract(losses["cuda"], losses["cpu"])) / np.abs(losses["cpu"])
+        return losses, rel, mean_err
+
+    result = {}
+    for fused_bn, step1_rtol in (("twopass", TRAIN_STEP1_RTOL), (None, ONEPASS_STEP1_RTOL)):
+        tag = fused_bn or "onepass"
+        losses, rel, mean_err = both(1, fused_bn, 6)
+        phase("train_vs_cpu", f"ResNet-10 {tag} B={B} T={T} N={N}: step-1 loss "
+              f"{losses['cuda'][0]:.7f} vs {losses['cpu'][0]:.7f} (rel {rel[0]:.2e}, limit "
+              f"{step1_rtol:.0e}); running means after step 1 at {mean_err:.3f} of rtol 1e-3; "
+              f"steps 2-6 rel {np.array2string(rel[1:], precision=2)} (not held: the ResNet's "
+              "trajectory separates as fast between JAX and the port on the CPU)")
+        if not (rel[0] <= step1_rtol and mean_err <= 1.0 and np.isfinite(losses["cuda"]).all()):
+            raise SystemExit(f"the card's ResNet step disagrees with the CPU's ({tag})")
+        result[f"train_vs_cpu_resnet_{tag}_step1_rel"] = float(rel[0])
+        result[f"train_vs_cpu_resnet_{tag}_steps_rel"] = rel.tolist()
+    losses, rel, _ = both(0, None, 12)
+    phase("train_vs_cpu", f"CNN B={B} T={T} N={N} K=12: rel {np.array2string(rel, precision=2)} "
+          f"(limits {TRAIN_EARLY:.0e} for the first 4, {TRAIN_ENVELOPE:.0e} throughout)")
+    if not (rel[:4].max() <= TRAIN_EARLY and rel.max() <= TRAIN_ENVELOPE):
+        raise SystemExit("the card's CNN trajectory leaves the CPU's envelope")
+    result["train_vs_cpu_cnn_rel"] = rel.tolist()
+    return result
+
+
+def crw_step_phase(smi):
+    """Phase 13: CRW train steps at bench.py's configuration (B 8, T 20,
+    16x16 patches, overlap (8, 0), synthetic SHARAD 912 x 4096 seed 13,
+    N = 113; ResNet-10, lr 1e-3, tau 0.01), the batch gathered once on the
+    card, float32 and bfloat16."""
+    from radar_sounder_crw_tpu_torch.data import RGWindows, gather_windows, synthetic_radargram
+    from radar_sounder_crw_tpu_torch.ops.crw import crw_loss
+    from radar_sounder_crw_tpu_torch.train import CRWTrainConfig, CRWTrainer
+
+    B, T, patch, overlap = 8, 20, (16, 16), (8, 0)
+    rg, _ = synthetic_radargram(H=912, W=4096, nclasses=5, seed=13)
+    ds = RGWindows(rg, length=T, dim=patch, overlap=overlap)
+    seq = gather_windows(torch.as_tensor(rg, device="cuda"), np.arange(B), ds.geo).contiguous()
+    N = seq.shape[2]
+    emb = torch.randn((B, T, N, 128), device="cuda", requires_grad=True)
+
+    def loss_step():
+        per, _ = crw_loss(emb, 0.01, per_item=True)
+        per.mean().backward()
+
+    loss_flops = step_flops(loss_step)
+    times = {}
+    for tag, dtype, peak in (("f32", torch.float32, PEAK_F32_FLOPS),
+                             ("bf16", torch.bfloat16, PEAK_BF16_FLOPS)):
+        trainer = CRWTrainer(CRWTrainConfig(model=1, patch_size=patch, seq_length=T,
+                                            overlap=overlap, batch_size=B, lr=1e-3, tau=0.01,
+                                            dtype=dtype), device="cuda")
+        trainer.init_state(tuple(seq.shape[1:]))
+        losses = [float(trainer.train_step(seq)) for _ in range(3)]  # warm-up
+        flops = step_flops(lambda: trainer.train_step(seq))
+        torch.cuda.reset_peak_memory_stats()
+        ms, wall = step_times(lambda: trainer.train_step(seq), 20)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        bound_ms = ((flops - loss_flops) / peak + loss_flops / PEAK_F32_FLOPS) * 1e3
+        busy = device_busy(lambda: [trainer.train_step(seq) for _ in range(3)])
+        bench_ms, bench_wall, bench_gb = cudnn_benchmark_times(lambda: trainer.train_step(seq), 20)
+        loss = float(trainer.train_step(seq))
+        if not (np.isfinite(losses).all() and np.isfinite(loss)):
+            raise SystemExit(f"CRW training at the bench configuration gave a non-finite loss "
+                             f"({tag})")
+        times.update({
+            f"crw_step_{tag}_ms": ms,
+            f"crw_step_{tag}_wall_ms": wall,
+            f"crw_steps_per_s_{tag}": 1e3 / wall,
+            f"crw_step_{tag}_peak_gb": peak_gb,
+            f"crw_step_{tag}_gflop": flops / 1e9,
+            f"crw_step_{tag}_bound_ms": bound_ms,
+            f"crw_step_{tag}_bound_share": bound_ms / ms,
+            f"crw_step_{tag}_device_idle_share": busy["device_idle_share"],
+            f"crw_step_{tag}_cudnn_benchmark_ms": bench_ms,
+            f"crw_step_{tag}_cudnn_benchmark_wall_ms": bench_wall,
+            f"crw_step_{tag}_cudnn_benchmark_peak_gb": bench_gb,
+        })
+        phase("crw_step", f"{tag} B={B} T={T} N={N}: {ms:.3f} ms a step (events, median of "
+              f"20), {wall:.3f} ms wall, {1e3 / wall:.2f} steps/s, peak {peak_gb:.2f} GB, "
+              f"{flops / 1e9:.1f} GFLOP (loss {loss_flops / 1e9:.2f}), bound {bound_ms:.3f} ms "
+              f"(share {bound_ms / ms:.3f}), idle {busy['device_idle_share']:.4f}; with "
+              f"cudnn.benchmark {bench_ms:.3f} ms ({bench_wall:.3f} wall, peak {bench_gb:.2f} "
+              f"GB); losses {losses[0]:.5f} -> {loss:.5f}")
+        del trainer
+        torch.cuda.empty_cache()
+    phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
+    return times
+
+
+def train_cli_phase():
+    """Phases 14-15: the user's training command at its defaults, float32
+    and --bf16, as processes from the shell."""
+    walls, pts = {}, {}
+    for tag, extra in (("f32", []), ("bf16", ["--bf16"])):
+        out = OUT / f"train_{tag}"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.train", *TRAIN_ARGS, *extra,
+             "--output_folder", str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        walls[tag] = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        epochs = [ln for ln in lines if ln.startswith("Epoch: ")]
+        phase("train_cli", f"cli.train {' '.join(TRAIN_ARGS + extra)}: exit {proc.returncode}, "
+              f"{walls[tag]:.2f} s wall; " + "; ".join(
+                  ln for ln in lines if ln.startswith(("Number of", "Epoch: ", "Finished"))))
+        if (proc.returncode != 0 or "Finished training." not in lines or len(epochs) != 2
+                or not all(np.isfinite(float(ln.split()[3])) for ln in epochs)):
+            raise SystemExit(f"cli.train {extra} failed:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+        walls[f"{tag}_epoch_s"] = [float(ln.rsplit(" ", 1)[1]) for ln in epochs]
+        pts[tag] = out / "models" / "sharad16_3.pt"
+    return {"cli_train_f32_s": walls["f32"], "cli_train_bf16_s": walls["bf16"],
+            "cli_train_f32_epoch_s": walls["f32_epoch_s"],
+            "cli_train_bf16_epoch_s": walls["bf16_epoch_s"]}, pts
+
+
+def trained_inference_phase(pts):
+    """Phase 16: each trained encoder file through inference: SHARAD window
+    0 seed->map (T = 100, N = 113) on the default route and the plain one."""
+    from radar_sounder_crw_tpu_torch.data import create_dataset, get_reference
+    from radar_sounder_crw_tpu_torch.infer import PropagationPipeline
+    from radar_sounder_crw_tpu_torch.models import create_model, load_torch_checkpoint
+    from radar_sounder_crw_tpu_torch.ops import confusion_matrix, labelprop_cuda, miou
+    from radar_sounder_crw_tpu_torch.ops.labelprop import LabelPropConfig
+    from radar_sounder_crw_tpu_torch.utils import resize_nearest
+
+    T, patch = 100, (16, 16)
+    ds = create_dataset(full=True, id=3, length=T, dim=patch, overlap=(8, 0))
+    geo = ds.geo
+    nclasses, seg = get_reference(id=3, h=geo.nh * patch[0], w=0, length=T, dim=patch)
+    seq = torch.as_tensor(ds[0], device="cuda")
+    N = seq.shape[1]
+    seg_ref = seg[: geo.rg_h(), : geo.w]
+    gt = resize_nearest(seg[: geo.rg_h(), : geo.rg_len()], (N, T))
+    cfg = LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=20)
+    result = {}
+    for tag, pt in pts.items():
+        model = load_torch_checkpoint(pt, create_model(1, False, device="cuda"))
+        pipe = PropagationPipeline(model, cfg, nclasses)
+        plain = PropagationPipeline(model, cfg, nclasses, kernel="torch")
+        pipe(seq, seg_ref)  # warm-up
+        reset_launches()
+        res = pipe(seq, seg_ref, detect_change=True)
+        torch.cuda.synchronize()
+        launched = dict(labelprop_cuda.launches)
+        ref = plain(seq, seg_ref, detect_change=True)
+        agree = float((res.prediction == ref.prediction).mean())
+        mi = miou(confusion_matrix(gt.ravel(), res.prediction.ravel(), nclasses))
+        phase("trained_inference", f"{tag} encoder {pt.name} loaded strict: SHARAD window 0 "
+              f"T={T} N={N}, default route launches {launched}, vs the plain route map "
+              f"agreement={agree:.5f}, change_idx {res.change_idx} vs {ref.change_idx}; mIoU "
+              f"vs the synthetic ground truth {mi:.5f}")
+        if (agree < MAP_AGREEMENT or res.change_idx != ref.change_idx
+                or launched["prop_step"] != T - 1 or res.prediction.shape != (N, T)):
+            raise SystemExit(f"the {tag} trained encoder's seed->map disagrees across routes")
+        result[f"trained_{tag}_map_agreement"] = agree
+        result[f"trained_{tag}_miou"] = mi
+        pt.unlink()  # 20 MB each: not brought back
+    return result
+
+
+def unet_phase(smi):
+    """Phases 17-18: UNet steps at scripts/test_unet.py's width and batch (64
+    strips of 912 x 64, 5 classes), then cli.test_unet as the user runs it
+    with --epochs 5, float32 and --bf16."""
+    from radar_sounder_crw_tpu_torch.data import load_raw_pair
+    from radar_sounder_crw_tpu_torch.train import UNetTrainConfig, UNetTrainer, unfold_strips
+
+    rg, sg = load_raw_pair(3)
+    x, y = unfold_strips(rg, sg.astype(np.int32), 64, 5)
+    bx = torch.as_tensor(x[:64], device="cuda").permute(0, 3, 1, 2).contiguous()
+    by = torch.as_tensor(y[:64], device="cuda")
+    times = {}
+    for tag, dtype, peak in (("f32", torch.float32, PEAK_F32_FLOPS),
+                             ("bf16", torch.bfloat16, PEAK_BF16_FLOPS)):
+        trainer = UNetTrainer(UNetTrainConfig(dtype=dtype), device="cuda")
+        trainer.init_state(x.shape)
+        losses = [float(trainer.train_step(bx, by)) for _ in range(2)]  # warm-up
+        flops = step_flops(lambda: trainer.train_step(bx, by))
+        torch.cuda.reset_peak_memory_stats()
+        ms, wall = step_times(lambda: trainer.train_step(bx, by), 5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        busy = device_busy(lambda: [trainer.train_step(bx, by) for _ in range(2)])
+        bench_ms, bench_wall, bench_gb = cudnn_benchmark_times(
+            lambda: trainer.train_step(bx, by), 5)
+        bound_ms = flops / peak * 1e3
+        if not np.isfinite(losses).all():
+            raise SystemExit(f"UNet training gave a non-finite loss ({tag})")
+        times.update({
+            f"unet_step_{tag}_ms": ms,
+            f"unet_step_{tag}_wall_ms": wall,
+            f"unet_steps_per_s_{tag}": 1e3 / wall,
+            f"unet_step_{tag}_peak_gb": peak_gb,
+            f"unet_step_{tag}_gflop": flops / 1e9,
+            f"unet_step_{tag}_bound_ms": bound_ms,
+            f"unet_step_{tag}_bound_share": bound_ms / ms,
+            f"unet_step_{tag}_device_idle_share": busy["device_idle_share"],
+            f"unet_step_{tag}_cudnn_benchmark_ms": bench_ms,
+            f"unet_step_{tag}_cudnn_benchmark_peak_gb": bench_gb,
+        })
+        phase("unet_step", f"{tag} B=64 912x64: {ms:.2f} ms a step (events, median of 5), "
+              f"{wall:.2f} ms wall, peak {peak_gb:.2f} GB, {flops / 1e12:.2f} TFLOP, bound "
+              f"{bound_ms:.2f} ms (share {bound_ms / ms:.3f}), idle "
+              f"{busy['device_idle_share']:.4f}; with cudnn.benchmark {bench_ms:.2f} ms (peak "
+              f"{bench_gb:.2f} GB); losses {losses}")
+        del trainer
+        torch.cuda.empty_cache()
+
+    for tag, extra in (("f32", []), ("bf16", ["--bf16"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.test_unet", "--epochs",
+             str(UNET_EPOCHS), *extra], cwd=ROOT, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        epoch_s = [float(ln.rsplit(" ", 1)[1]) for ln in lines if ln.startswith("Epoch: ")]
+        mi = [ln for ln in lines if ln.startswith("mIoU:")]
+        phase("unet_cli", f"cli.test_unet --epochs {UNET_EPOCHS} {' '.join(extra)}: exit "
+              f"{proc.returncode}, {wall:.2f} s wall, epochs {epoch_s} s, "
+              f"{mi[0] if mi else 'no mIoU line'}")
+        if proc.returncode != 0 or not mi or len(epoch_s) != UNET_EPOCHS:
+            raise SystemExit(f"cli.test_unet {extra} failed:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+        steps = -(-int(len(x) * 0.9) // 64)  # 115 training strips at batch 64
+        ms_step = statistics.median(epoch_s[1:]) / steps * 1e3  # after the first epoch
+        times[f"cli_test_unet_{tag}_s"] = wall
+        times[f"cli_test_unet_{tag}_ms_per_step"] = ms_step
+        times[f"cli_test_unet_{tag}_miou"] = float(mi[0].split()[1])
+    phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1002,7 +1345,15 @@ def main() -> int:
     cli_times.update(annotate_ms)
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in cli_times.items()))
 
-    # 12. results ---------------------------------------------------------------
+    # 12-18. training -------------------------------------------------------------
+    train_times = train_vs_cpu_phase()
+    train_times.update(crw_step_phase(smi))
+    cli_train_times, pts = train_cli_phase()
+    train_times.update(cli_train_times)
+    train_times.update(trained_inference_phase(pts))
+    train_times.update(unet_phase(smi))
+
+    # 19. results ---------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "prop_step",
@@ -1069,7 +1420,8 @@ def main() -> int:
         "launches_cli_test_all": cli_launches["prop_all"],
         "launches_annotate": annotate_launches["prop_all"],
         "launches_auto_limits": auto_launches["prop_all"],
-    }], "times": times, "survey_times": survey_times, "cli_times": cli_times}))
+    }], "times": times, "survey_times": survey_times, "cli_times": cli_times,
+        "train_times": train_times}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0

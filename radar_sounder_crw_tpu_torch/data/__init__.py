@@ -1,4 +1,9 @@
-from .device_windows import gather_windows, resident_source, window_index_arrays
+from .device_windows import (
+    gather_windows,
+    make_window_gather,
+    resident_source,
+    window_index_arrays,
+)
 from .patchify import GridGeometry, extract_window, unfold2d, window_geometry
 from .radargram import ConcatWindows, RGWindows, load_radargram, trim_miguel
 from .torch_pt import load_pt, save_pt
@@ -18,6 +23,7 @@ __all__ = [
     "load_radargram",
     "load_pt",
     "load_raw_pair",
+    "make_window_gather",
     "resident_source",
     "save_pt",
     "synthetic_radargram",

@@ -12,6 +12,8 @@ Follows radar_sounder_crw_tpu/data/device_windows.py.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -88,6 +90,11 @@ def gather_windows(rg: torch.Tensor, indices, geo: GridGeometry, length: int | N
     x = rg[row_idx[None, :, None], cols[:, None, :]]  # (B, N*h, T*w)
     x = x.reshape(-1, geo.nh, geo.h, T, geo.w)
     return x.permute(0, 3, 1, 2, 4)  # (B, T, N, h, w)
+
+
+def make_window_gather(geo: GridGeometry, length: int | None = None):
+    """`gather_windows` with the geometry bound: (rg, indices) -> batch."""
+    return partial(gather_windows, geo=geo, length=length)
 
 
 def _same_windowing(a: GridGeometry, b: GridGeometry) -> bool:

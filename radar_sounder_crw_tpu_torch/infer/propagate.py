@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.resnet import frozen_statistics
 from ..ops.labelprop import (
     LabelPropConfig,
     propagate_labels,
@@ -58,16 +59,15 @@ def _batch_stats(model: nn.Module):
     form of flax `apply(train=True, mutable=['batch_stats'])` with the
     updated collection discarded."""
     bns = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
-    saved = [(m.training, m.track_running_stats) for m in bns]
+    saved = [m.training for m in bns]
     for m in bns:
         m.train()
-        m.track_running_stats = False
     try:
-        yield
+        with frozen_statistics(model):
+            yield
     finally:
-        for m, (training, track) in zip(bns, saved):
+        for m, training in zip(bns, saved):
             m.train(training)
-            m.track_running_stats = track
 
 
 @torch.no_grad()

@@ -9,6 +9,10 @@ radar_sounder_crw_tpu/models/encoders.py, quirks included:
   * CNN: padding=1 on the two 5x5 convs, max-pools with stride 1;
   * ResNet stem: a 1x1 conv WITH padding 1, which grows the map by 2 px per
     side (the border pixels equal the conv bias before `bn0`).
+
+A compute dtype of bfloat16 works as flax's `dtype` does: the parameters
+stay float32, the convolutions and BatchNorm run under `torch.autocast`,
+and the head `fc` runs in float32, so the embeddings come out float32.
 """
 
 from __future__ import annotations
@@ -19,10 +23,26 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .resnet import ResNetCore, batch_norm
+from .resnet import BatchNorm, ResNetCore, f32_head
+
+# BatchNorm variants of the JAX package's make_norm that are recorded TPU
+# negative results and are not ported (radar_sounder_crw_tpu/models/resnet.py
+# make_norm, models/fused_bn.py)
+_NOT_PORTED_BN = (True, "fused", "lean")
 
 
-class CNNEncoder(nn.Module):
+class _Encoder(nn.Module):
+    """Runs `body` under autocast at the compute dtype, then the float32
+    head."""
+
+    compute_dtype = torch.float32
+
+    def _autocast(self, x: torch.Tensor):
+        return torch.autocast(x.device.type, dtype=self.compute_dtype,
+                              enabled=self.compute_dtype != torch.float32)
+
+
+class CNNEncoder(_Encoder):
     """5 convs (5,5,3,3,3) -> GAP -> FC(128)."""
 
     def __init__(self, pos_embed: bool = False, embed_dim: int = 128):
@@ -38,27 +58,32 @@ class CNNEncoder(nn.Module):
         self.fc = nn.Linear(128, embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.pool(self.relu(self.conv1(x)))
-        x = self.pool(self.relu(self.conv2(x)))
-        x = self.relu(self.conv3(x))
-        x = self.relu(self.conv4(x))
-        x = self.relu(self.conv5(x))
-        return self.fc(x.mean(dim=(2, 3)))
+        with self._autocast(x):
+            x = self.pool(self.relu(self.conv1(x)))
+            x = self.pool(self.relu(self.conv2(x)))
+            x = self.relu(self.conv3(x))
+            x = self.relu(self.conv4(x))
+            x = self.relu(self.conv5(x))
+            feat = x.mean(dim=(2, 3))
+        return f32_head(self.fc, feat)
 
 
-class ResNetEncoder(nn.Module):
+class ResNetEncoder(_Encoder):
     """1x1(+pad) stem to 3ch + BN + ReLU, then the ResNet-10 core to 128."""
 
-    def __init__(self, pos_embed: bool = False, embed_dim: int = 128, stage_sizes=(1, 1, 1, 1)):
+    def __init__(self, pos_embed: bool = False, embed_dim: int = 128, stage_sizes=(1, 1, 1, 1),
+                 twopass: bool = False):
         super().__init__()
         in_ch = 2 if pos_embed else 1
         self.fc0 = nn.Conv2d(in_ch, 3, 1, padding=1)
-        self.bn0 = batch_norm(3)
+        self.bn0 = BatchNorm(3, twopass)
         self.relu = nn.ReLU(inplace=True)
-        self.model = ResNetCore(stage_sizes=stage_sizes, num_classes=embed_dim)
+        self.model = ResNetCore(stage_sizes=stage_sizes, num_classes=embed_dim, twopass=twopass)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(self.relu(self.bn0(self.fc0(x))))
+        with self._autocast(x):
+            feat = self.model.features(self.relu(self.bn0(self.fc0(x))))
+        return f32_head(self.model.fc, feat)
 
 
 def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -67,7 +92,7 @@ def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
     radar_sounder_crw_tpu/models/initializers.py does on the JAX side."""
     core = set(model.model.modules()) if isinstance(model, ResNetEncoder) else set()
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if m in core and isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(
                     m.weight, mode="fan_out", nonlinearity="relu", generator=generator
@@ -75,22 +100,44 @@ def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
             else:
                 nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
             if m.bias is not None:
-                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                fan_in = nn.init._calculate_fan_in_and_fan_out(m.weight)[0]
+                bound = 1.0 / math.sqrt(fan_in)
                 nn.init.uniform_(m.bias, -bound, bound, generator=generator)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
 
 
-def create_model(model_id: int, pos_embed: bool, device=None, seed: int = 0) -> nn.Module:
+def bn_twopass(fused_bn) -> bool:
+    """The JAX package's `fused_bn` knob -> the port's BatchNorm variance:
+    None is flax's one-pass default, 'twopass' the two-pass one."""
+    if fused_bn in _NOT_PORTED_BN:
+        raise ValueError(
+            f"fused_bn={fused_bn!r}: the JAX package's hand-scheduled "
+            "(True/'fused') and bf16-read ('lean') BatchNorms are recorded TPU "
+            "negative results and are not ported; use None or 'twopass'"
+        )
+    if fused_bn not in (None, "twopass"):
+        raise ValueError(f"unknown BatchNorm implementation {fused_bn!r}")
+    return fused_bn == "twopass"
+
+
+def create_model(model_id: int, pos_embed: bool, device=None, seed: int = 0,
+                 dtype=torch.float32, fused_bn=None) -> nn.Module:
     """Integer model registry (0 = CNN, 1 = ResNet), initialized from `seed`
-    on the CPU, in eval mode on `device` (default cuda; raises when absent)."""
+    on the CPU, in eval mode on `device` (default cuda; raises when absent).
+    `dtype` is the compute dtype (float32 or bfloat16); `fused_bn` None or
+    'twopass' picks the train-mode batch variance (models/resnet.py)."""
     device = resolve_device(device)
+    twopass = bn_twopass(fused_bn)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype} is not float32 or bfloat16")
     if model_id == 0:
         model = CNNEncoder(pos_embed=pos_embed)
     elif model_id == 1:
-        model = ResNetEncoder(pos_embed=pos_embed)
+        model = ResNetEncoder(pos_embed=pos_embed, twopass=twopass)
     else:
         raise ValueError(f"unknown model id {model_id} (0=CNN, 1=ResNet)")
+    model.compute_dtype = dtype
     _init_weights(model, torch.Generator().manual_seed(seed))
     return model.eval().to(device)
 

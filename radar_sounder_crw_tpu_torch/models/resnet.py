@@ -1,15 +1,18 @@
 """ResNet backbone (NCHW): the torchvision-style BasicBlock net the encoders
-embed, at stage sizes (1, 1, 1, 1) a "ResNet-10".
+embed, at stage sizes (1, 1, 1, 1) a "ResNet-10", and the BatchNorm every
+port model trains with.
 
-Follows radar_sounder_crw_tpu/models/resnet.py (`BasicBlock`, `ResNetCore`)
-with the plain 7x7/stride-2 stem only; the JAX package's space-to-depth stem
-and batch-minor layout are TPU layout work and compute the same function.
-Submodule names are the reference state_dict names (`conv1`, `bn1`,
-`layer2.0.downsample.0`, `fc`), so weights load with `strict=True`.
+Follows radar_sounder_crw_tpu/models/resnet.py (`BasicBlock`, `ResNetCore`,
+`make_norm`) with the plain 7x7/stride-2 stem only; the JAX package's
+space-to-depth stem and batch-minor layout are TPU layout work and compute
+the same function. Submodule names are the reference state_dict names
+(`conv1`, `bn1`, `layer2.0.downsample.0`, `fc`), so weights load with
+`strict=True`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -19,24 +22,87 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax momentum 0.9
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax's `nn.BatchNorm` rule in train mode.
+
+    In train mode the batch statistics are computed in float32 (whatever
+    the input dtype), the variance one-pass as max(0, E[x^2] - E[x]^2)
+    (flax's `use_fast_variance=True`; `twopass=True` gives E[(x - mean)^2]),
+    the output is (x - mean) * (rsqrt(var + eps) * weight) + bias, and the
+    running statistics blend the BIASED batch variance:
+    r <- 0.9 r + 0.1 batch. `nn.BatchNorm2d` blends the unbiased one, n/(n-1)
+    larger. The buffers are left alone when `track_running_stats` is False
+    (`frozen_statistics`). In eval mode the module is `nn.BatchNorm2d` (a
+    non-float32 input is normalised in float32 and cast back, as flax does).
+    State-dict keys are those of `nn.BatchNorm2d`."""
+
+    def __init__(self, channels: int, twopass: bool = False):
+        super().__init__(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.twopass = twopass
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            if x.dtype == torch.float32:
+                return super().forward(x)
+            return super().forward(x.float()).to(x.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        if self.twopass:
+            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        else:
+            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        if self.track_running_stats:
+            decay = 1.0 - self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(decay * self.running_var + self.momentum * var)
+                self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: nn.Module):
+    """Every BatchNorm of `model` leaves its running statistics alone
+    (`track_running_stats` off): train mode then normalises with the batch's
+    statistics and updates nothing, as flax's `apply(train=True)` with the
+    updated collection discarded. It serves the recompute of an
+    activation-checkpointed forward (jax.checkpoint has no such side effect
+    to repeat) and `bn_train_mode` inference."""
+    bns = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    saved = [m.track_running_stats for m in bns]
+    for m in bns:
+        m.track_running_stats = False
+    try:
+        yield
+    finally:
+        for m, track in zip(bns, saved):
+            m.track_running_stats = track
+
+
+def f32_head(fc: nn.Module, feat: torch.Tensor) -> torch.Tensor:
+    """A head layer in float32 outside any autocast region, as the JAX
+    package's heads run with dtype=float32 whatever the encoder's dtype."""
+    with torch.autocast(feat.device.type, enabled=False):
+        return fc(feat.float())
 
 
 class BasicBlock(nn.Module):
     """Two 3x3 convs with a residual connection (expansion 1)."""
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, use_projection: bool = False):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, use_projection: bool = False,
+                 twopass: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = batch_norm(planes)
+        self.bn1 = BatchNorm(planes, twopass)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = batch_norm(planes)
+        self.bn2 = BatchNorm(planes, twopass)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
             nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-                batch_norm(planes),
+                BatchNorm(planes, twopass),
             )
             if use_projection
             else None
@@ -58,10 +124,11 @@ class ResNetCore(nn.Module):
         num_classes: int = 128,
         width: int = 64,
         in_channels: int = 3,
+        twopass: bool = False,
     ):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, width, 7, stride=2, padding=3, bias=False)
-        self.bn1 = batch_norm(width)
+        self.bn1 = BatchNorm(width, twopass)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes, planes = width, width
@@ -69,17 +136,20 @@ class ResNetCore(nn.Module):
             blocks = []
             for block in range(nblocks):
                 first = stage > 0 and block == 0
-                blocks.append(
-                    BasicBlock(inplanes, planes, stride=2 if first else 1, use_projection=first)
-                )
+                blocks.append(BasicBlock(inplanes, planes, stride=2 if first else 1,
+                                         use_projection=first, twopass=twopass))
                 inplanes = planes
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """Everything before the head: the globally pooled (B, C) map."""
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
-        return self.fc(x.mean(dim=(2, 3)))
+        return x.mean(dim=(2, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return f32_head(self.fc, self.features(x))

@@ -1,0 +1,210 @@
+"""CRW unsupervised trainer on one device: Adam, the train step, the epoch
+loop.
+
+Follows radar_sounder_crw_tpu/train/crw_trainer.py (itself the reference
+trainer, scripts/train.py:39-93): Adam, per-epoch mean loss and wall time,
+batches shuffled by (seed, global epoch index), seed 11, the encoder
+exported at the end. A step encodes the B*T*N patches in train mode, takes
+the per-item CRW loss, weights it (sum(per_item * w) / sum(w)), backpropagates
+and steps Adam; a partial last batch is simply a smaller batch. Batches are
+gathered on the device from the radargram uploaded once (`device_resident`)
+or stacked on the host, the next one staged while the current step runs.
+The TPU knobs `steps_per_dispatch` and `s2d_stem` are not ported; neither
+is the mesh (one device).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..data.device_windows import gather_windows, resident_source
+from ..models import create_model, param_count
+from ..models.resnet import frozen_statistics
+from ..ops.crw import crw_loss
+from ..utils.device import parity_mode, resolve_device
+from ..utils.pos_embed import maybe_pos_embed
+
+
+@dataclasses.dataclass
+class CRWTrainConfig:
+    """Training hyperparameters (defaults = reference scripts/train.py:17-37)."""
+
+    model: int = 1  # 0=CNN, 1=ResNet
+    patch_size: tuple[int, int] = (16, 16)
+    seq_length: int = 20
+    overlap: tuple[int, int] = (8, 0)
+    batch_size: int = 8
+    epochs: int = 2
+    lr: float = 1e-3
+    tau: float = 0.01
+    pos_embed: bool = False
+    seed: int = 11
+    dtype: torch.dtype = torch.float32  # encoder compute dtype (bfloat16: autocast)
+    remat: bool = False  # recompute the encoder's activations in the backward
+    device_resident: bool | None = None  # gather batches on the device from the
+    # radargram(s) uploaded once; None = whenever the dataset serves windows of
+    # host radargrams (data/device_windows.resident_source), False = host
+    # batches, True = raise where the dataset does not allow it
+    fused_bn: str | None = None  # None: one-pass batch variance; 'twopass'
+
+
+def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
+                        remat: bool = False) -> Callable:
+    """(seq (B, T, N, h, w), weights (B,)) -> the step's loss (a detached
+    0-d tensor), after the Adam update. With remat the encoder forward runs
+    under activation checkpointing; its recompute leaves the BatchNorm
+    running statistics alone, so they are updated once a step."""
+
+    def encode(seq):
+        B, T, N, h, w = seq.shape
+        x = maybe_pos_embed(seq.reshape(B * T * N, 1, h, w), use_pos_embed)
+        return model(x).reshape(B, T, N, -1)
+
+    def no_update_on_recompute():
+        return contextlib.nullcontext(), frozen_statistics(model)
+
+    def step(seq, weights):
+        model.train()
+        if remat:
+            emb = checkpoint(encode, seq, use_reentrant=False,
+                             context_fn=no_update_on_recompute)
+        else:
+            emb = encode(seq)
+        per_item, _ = crw_loss(emb, tau, per_item=True)
+        loss = (per_item * weights).sum() / weights.sum()
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+class CRWTrainer:
+    """Owns the encoder, Adam, the step and the epoch loop on one device
+    (default cuda; raises without it, CPU runs pass device='cpu')."""
+
+    def __init__(self, config: CRWTrainConfig, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        parity_mode()
+        self.model = None
+        self.optimizer = None
+        self.step = 0
+        self._epoch_idx = 0  # global epoch counter driving the shuffle order
+        self._resident_rg = None  # (host array, its upload)
+
+    # -- lifecycle -----------------------------------------------------------
+    def init_state(self, example_item_shape):
+        """Fresh encoder (seed `config.seed`) and Adam; item shape (T, N, h, w)."""
+        cfg = self.config
+        self._init_shape = tuple(int(d) for d in example_item_shape)
+        self.model = create_model(cfg.model, cfg.pos_embed, device=self.device, seed=cfg.seed,
+                                  dtype=cfg.dtype, fused_bn=cfg.fused_bn)
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr)
+        self._step_fn = make_crw_train_step(self.model, self.optimizer, cfg.tau,
+                                            cfg.pos_embed, cfg.remat)
+        self.step = 0
+        self.n_params = param_count(self.model)
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the model with its buffers, Adam's state
+        and the step count."""
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+    def variables(self) -> dict:
+        """The encoder's state_dict (reference names, CPU tensors)."""
+        return {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+
+    # -- steps ---------------------------------------------------------------
+    def _upload(self, batch) -> torch.Tensor:
+        """A host batch onto the device without waiting for the copy."""
+        t = torch.as_tensor(np.asarray(batch, np.float32))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def train_step(self, batch) -> torch.Tensor:
+        """One optimizer step on a batch (B, T, N, h, w) of any size: a host
+        array, or a tensor already on the device (after `init_state`)."""
+        seq = batch if isinstance(batch, torch.Tensor) else self._upload(batch)
+        weights = torch.ones(seq.shape[0], dtype=torch.float32, device=self.device)
+        loss = self._step_fn(seq.to(self.device, torch.float32), weights)
+        self.step += 1
+        return loss
+
+    def _resident(self, dataset):
+        """(radargram on the device, geometry, index map) or None."""
+        cfg = self.config
+        if cfg.device_resident is False:
+            return None
+        source = resident_source(dataset)
+        if source is None:
+            if cfg.device_resident is True:
+                raise ValueError(
+                    "device_resident=True needs a window dataset over host radargrams "
+                    "(RGWindows, ConcatWindows of RGWindows with one windowing geometry, "
+                    "or SubsetWindows over either)"
+                )
+            return None
+        rg_host, geo, index_map = source
+        # the upload survives fit() calls (one epoch a call), keyed on
+        # the host array's identity
+        if self._resident_rg is None or self._resident_rg[0] is not rg_host:
+            rg_dev = torch.as_tensor(np.asarray(rg_host, np.float32)).to(self.device)
+            self._resident_rg = (rg_host, rg_dev)
+        return self._resident_rg[1], geo, index_map
+
+    def fit(self, dataset, log: Callable[[str], None] = print) -> list[float]:
+        """Epoch loop (reference: scripts/train.py:62-75): per epoch a
+        permutation keyed by (seed, global epoch index), batches in order,
+        the mean loss and wall time logged. A restored trainer continues the
+        schedule from step // steps_per_epoch (same dataset length and batch
+        size as the run that saved it)."""
+        cfg = self.config
+        if self.model is None:
+            self.init_state(dataset[0].shape)
+        steps_per_epoch = max(1, -(-len(dataset) // cfg.batch_size))
+        if self._epoch_idx == 0 and self.step > 0:
+            self._epoch_idx = self.step // steps_per_epoch
+        resident = self._resident(dataset)
+
+        history = []
+        for epoch in range(cfg.epochs):
+            t0 = time.time()
+            order = np.random.default_rng([cfg.seed, self._epoch_idx]).permutation(len(dataset))
+            self._epoch_idx += 1
+            starts = list(range(0, len(order), cfg.batch_size))
+
+            def stage(si):
+                idxs = order[starts[si]: starts[si] + cfg.batch_size]
+                if resident is not None:
+                    rg_dev, geo, index_map = resident
+                    ids = torch.as_tensor(index_map[idxs].astype(np.int64)).to(self.device)
+                    return gather_windows(rg_dev, ids, geo)
+                return self._upload(np.stack([dataset[int(i)] for i in idxs]))
+
+            losses = []
+            staged = stage(0) if starts else None
+            for si in range(len(starts)):
+                seq = staged
+                if si + 1 < len(starts):
+                    staged = stage(si + 1)  # prefetch while this step runs
+                losses.append(self.train_step(seq))
+            epoch_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
+            history.append(epoch_loss)
+            log(f"Epoch: {epoch} Loss: {epoch_loss} Time: {time.time() - t0:.3f}")
+        return history

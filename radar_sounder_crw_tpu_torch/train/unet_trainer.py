@@ -1,0 +1,187 @@
+"""Supervised UNet baseline trainer (SHARAD strips) on one device.
+
+Follows radar_sounder_crw_tpu/train/unet_trainer.py (the reference's
+scripts/test/test_unet.py): unfold the radargram into full-height strips,
+one-hot the ground truth, a seeded 90/10 split, Adam, train, then the
+classification report on the held-out strips. The reference's loss quirk is
+kept behind `quirk_double_softmax` (default on): the logits are
+soft-maxed and the cross-entropy then applied to the probabilities. The
+loss is the per-item mean over H and W, weighted. The shuffle is keyed by
+(seed, epoch index); a partial last batch is a smaller batch (exact
+BatchNorm statistics). With `device_resident` the strips and their integer
+labels are uploaded once and each step rebuilds its one-hot on the device,
+which equals the host batch exactly when the labels are one-hot.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.unet import create_unet
+from ..utils.device import parity_mode, resolve_device
+
+
+@dataclasses.dataclass
+class UNetTrainConfig:
+    patch_size: tuple[int, int] = (912, 64)
+    split: float = 0.9
+    batch_size: int = 64
+    epochs: int = 100
+    lr: float = 1e-4
+    n_classes: int = 5
+    seed: int = 11
+    quirk_double_softmax: bool = True
+    dtype: torch.dtype = torch.float32  # compute dtype (bfloat16: autocast)
+    device_resident: bool | None = None  # None = when y is exactly one-hot;
+    # False = host batches; True = raise on soft labels
+
+
+def unfold_strips(rg: np.ndarray, seg: np.ndarray, strip_w: int, n_classes: int):
+    """Radargram + GT -> (samples (S, H, W, 1) float32, one-hot (S, H, W, M))
+    (reference: scripts/test/test_unet.py:34-40; width-strided unfold)."""
+    H, W = rg.shape
+    S = W // strip_w
+    x = rg[:, : S * strip_w].reshape(H, S, strip_w).transpose(1, 0, 2)
+    y = seg[:, : S * strip_w].reshape(H, S, strip_w).transpose(1, 0, 2)
+    onehot = np.eye(n_classes, dtype=np.float32)[y.astype(np.int64)]
+    return x[..., None].astype(np.float32), onehot
+
+
+def train_test_split(n: int, split: float, seed: int):
+    """Index split mirroring the reference's random 90/10
+    (reference: scripts/test/test_unet.py:43-46)."""
+    order = np.random.default_rng(seed).permutation(n)
+    n_train = int(split * n)
+    return order[:n_train], order[n_train:]
+
+
+def _exact_onehot(y: np.ndarray, n_classes: int) -> bool:
+    return bool(
+        y.shape[-1] == n_classes
+        and ((y == 0.0) | (y == 1.0)).all()
+        and (y.sum(axis=-1) == 1.0).all()
+    )
+
+
+class UNetTrainer:
+    """Owns the UNet, Adam and the epoch loop on one device (default cuda;
+    raises without it, CPU runs pass device='cpu'). Inputs are NHWC numpy
+    strips (S, H, W, 1) with one-hot labels (S, H, W, M), as unfold_strips
+    gives them."""
+
+    def __init__(self, config: UNetTrainConfig, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        parity_mode()
+        self.model = None
+        self.optimizer = None
+        self.step = 0
+        self._epoch_idx = 0
+        self._resident_data = None  # (x, y, x on the device, labels on the device)
+
+    def init_state(self, sample_shape):
+        """Fresh UNet (seed `config.seed`) and Adam; sample shape (S, H, W, 1)."""
+        cfg = self.config
+        self._init_shape = tuple(int(d) for d in sample_shape)
+        self.model = create_unet(1, cfg.n_classes, bilinear=True, dtype=cfg.dtype,
+                                 device=self.device, seed=cfg.seed)
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr)
+        self.step = 0
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+    def loss(self, logits: torch.Tensor, onehot: torch.Tensor, weights: torch.Tensor):
+        """logits (B, M, H, W), onehot (B, H, W, M), weights (B,) -> scalar."""
+        logits = logits.permute(0, 2, 3, 1)
+        if self.config.quirk_double_softmax:
+            logp = F.log_softmax(F.softmax(logits, dim=-1), dim=-1)
+        else:
+            logp = F.log_softmax(logits, dim=-1)
+        per_item = -(onehot * logp).sum(dim=-1).mean(dim=(1, 2))
+        return (per_item * weights).sum() / weights.sum()
+
+    def train_step(self, x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+        """One Adam step on device tensors x (B, 1, H, W), onehot (B, H, W, M);
+        the loss (detached)."""
+        self.model.train()
+        weights = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+        loss = self.loss(self.model(x), onehot, weights)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return loss.detach()
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
+
+    def _resident(self, x, y):
+        """(strips (S, 1, H, W), int labels (S, H, W)) on the device, or None."""
+        cfg = self.config
+        if cfg.device_resident is False:
+            return None
+        cached = self._resident_data
+        if cached is not None and cached[0] is x and cached[1] is y:
+            return cached[2], cached[3]
+        y_arr = np.asarray(y)
+        if not _exact_onehot(y_arr, cfg.n_classes):
+            if cfg.device_resident is True:
+                raise ValueError(
+                    "device_resident=True needs exactly one-hot labels (soft labels "
+                    "cannot round-trip through the compact int encoding)"
+                )
+            return None
+        x_dev = self._to_device(x).permute(0, 3, 1, 2).contiguous()
+        labels_dev = torch.as_tensor(y_arr.argmax(axis=-1)).to(self.device)
+        self._resident_data = (x, y, x_dev, labels_dev)
+        return x_dev, labels_dev
+
+    def fit(self, x, y, log: Callable[[str], None] = print) -> list[float]:
+        cfg = self.config
+        if self.model is None:
+            self.init_state(x.shape)
+        steps_per_epoch = max(1, -(-len(x) // cfg.batch_size))
+        if self._epoch_idx == 0 and self.step > 0:
+            self._epoch_idx = self.step // steps_per_epoch
+        resident = self._resident(x, y)
+
+        history = []
+        for epoch in range(cfg.epochs):
+            t0 = time.time()
+            order = np.random.default_rng([cfg.seed, self._epoch_idx]).permutation(len(x))
+            self._epoch_idx += 1
+            losses = []
+            for s in range(0, len(order), cfg.batch_size):
+                idx = order[s: s + cfg.batch_size]
+                if resident is not None:
+                    ids = torch.as_tensor(idx).to(self.device)
+                    bx = resident[0][ids]
+                    by = F.one_hot(resident[1][ids], cfg.n_classes).float()
+                else:
+                    bx = self._to_device(x[idx]).permute(0, 3, 1, 2)
+                    by = self._to_device(y[idx])
+                losses.append(self.train_step(bx, by))
+            epoch_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
+            history.append(epoch_loss)
+            log(f"Epoch: {epoch + 1} Loss: {epoch_loss} Time: {time.time() - t0:.3f}")
+        return history
+
+    @torch.no_grad()
+    def predict(self, x) -> np.ndarray:
+        """Eval-mode argmax class map (B, H, W) int32 of NHWC strips."""
+        self.model.eval()
+        logits = self.model(self._to_device(x).permute(0, 3, 1, 2))
+        return logits.argmax(dim=1).to(torch.int32).cpu().numpy()

@@ -2,9 +2,11 @@ from .device import parity_mode, resolve_device
 from .ndiag import ndiag_matrix
 from .plotting import dataset_cmap, plot_loss_curve, plot_segmentation, plot_xent_heatmap
 from .pos_embed import maybe_pos_embed, pos_embed
-from .resize import resize_nearest
+from .profiling import StepTimer, profile_trace, time_fn
+from .resize import resize_bilinear_align_corners, resize_nearest
 
 __all__ = [
+    "StepTimer",
     "dataset_cmap",
     "maybe_pos_embed",
     "ndiag_matrix",
@@ -13,6 +15,9 @@ __all__ = [
     "plot_segmentation",
     "plot_xent_heatmap",
     "pos_embed",
+    "profile_trace",
+    "resize_bilinear_align_corners",
     "resize_nearest",
     "resolve_device",
+    "time_fn",
 ]

@@ -19,7 +19,7 @@ from radar_sounder_crw_tpu_torch.utils.device import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "radar_sounder_crw_tpu_torch")
 FORBIDDEN = re.compile(
-    r"^\s*(from|import)\s+(jax|flax|optax|radar_sounder_crw_tpu)(\.|\s|$)", re.M
+    r"^\s*(from|import)\s+(jax|flax|optax|orbax|radar_sounder_crw_tpu)(\.|\s|$)", re.M
 )
 
 
@@ -30,20 +30,23 @@ def _port_modules():
 
 
 def test_every_module_imports_without_jax():
-    """Every module, the entry points under cli/ included, imports with JAX,
-    the JAX package and matplotlib (absent on the card's machine; the plots
-    import it when they draw) all unimportable."""
+    """Every module, the entry points under cli/ and the trainers included,
+    imports with JAX, flax, optax, orbax, the JAX package and matplotlib
+    (absent on the card's machine; the plots import it when they draw) all
+    unimportable."""
     mods = ["radar_sounder_crw_tpu_torch", *_port_modules(), "chip_smoke"]
     assert len(mods) >= 15
     port = "radar_sounder_crw_tpu_torch."
     for name in ("ops.metrics", "utils.ndiag", "utils.plotting", "data.torch_pt",
                  "models.checkpoint", "cli._common", "cli._qualitative", "cli.test_all",
                  "cli.test", "cli.test_mc1", "cli.test_mc3", "cli.test_sharad", "cli.annotate",
-                 "cli.heatmap", "cli.show_grid"):
+                 "cli.heatmap", "cli.show_grid", "cli.train", "cli.test_unet", "ops.crw",
+                 "models.unet", "utils.profiling", "train", "train.crw_trainer",
+                 "train.checkpoint", "train.unet_trainer"):
         assert port + name in mods, name
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'radar_sounder_crw_tpu',"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'radar_sounder_crw_tpu',"
         " 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
@@ -72,6 +75,7 @@ def test_sources_import_nothing_of_jax():
     # the scan itself catches what it is meant to
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from radar_sounder_crw_tpu.ops import pelt")
+    assert FORBIDDEN.search("import orbax.checkpoint as ocp")
     assert not FORBIDDEN.search("from radar_sounder_crw_tpu_torch.ops import pelt")
 
 
