@@ -110,14 +110,36 @@ Phases, one line each, any failure exits non-zero:
      13; then `python -m radar_sounder_crw_tpu_torch.cli.test_unet --epochs
      5`, float32 and --bf16 (the script's 100 epochs cut to 5 to keep the
      run short): exit 0, `mIoU:`, ms a step from the epoch times;
- 19. a JSON line describing each kernel (with the training phases' numbers
-     under `train_times`), the card's name and power limit, and the final
-     {"ok": true, ...} line.
+ 19. tune: `RSCRW_SYNTH_SCALE=4 python -m radar_sounder_crw_tpu_torch.cli.train
+     --tune --tune_samples 4 --tune_ckpt_dir <dir>` at the tuner's defaults
+     (dataset 0, its synthetic 410 x 27330 line cut to 410 x 6832, the cut a
+     cut of length only; ResNet-10 at full width, T = 8, 32x32 patches, the
+     reference grid, max_t 3: seven trial-epochs), then the same command
+     again: it resumes with every rung done, trains nothing (the sweep
+     ledger unchanged, only the last rung's line, read back) and reports
+     the same best trial; both walls and each trial's epoch times;
+ 20. data_parallel: `python -m torch.distributed.run --standalone
+     --nproc_per_node 1 chip_smoke.py --data-parallel-rank nccl`: three
+     CRWTrainer steps at bench.py's configuration on `make_mesh()` (NCCL,
+     world 1, every collective issued) and on the device alone, cuDNN
+     deterministic: losses and parameters exactly equal, ms a step of both;
+     the Miguel survey's forward pass with change detection through
+     `propagate_survey(mesh=...)` and without: maps and change indices
+     exactly equal, one prop_seq launch each. Then the same with two ranks
+     on the one card over gloo carrying CUDA tensors (NCCL refuses two
+     ranks on one device), held as tests/test_torch_parallel.py holds two
+     ranks: the first step's loss within rtol 1e-5 and its running
+     statistics within rtol 1e-5 / atol 1e-6, the ranks' states equal, the
+     survey's maps exactly equal; where gloo cannot run, the reason;
+ 21. a JSON line describing each kernel (with the training phases' numbers
+     under `train_times`, the data-parallel runs under `data_parallel`),
+     the card's name and power limit, and the final {"ok": true, ...} line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after it: the default main path (phases 3 and 7), the cuda_resident one,
-the auto_limits call, the two entry points of phases 10 and 11 and each
-trained encoder's seed->map in phase 16. The training phases launch none of
+the auto_limits call, the two entry points of phases 10 and 11, each
+trained encoder's seed->map in phase 16 and each survey call of phase 20
+(one prop_seq launch a rank and call). The training phases launch none of
 the port's kernels: their work runs in cuDNN and PyTorch's own kernels.
 """
 
@@ -126,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -287,13 +310,35 @@ def resident_split_ms(args, prefix):
             f"{prefix}_chain_ms": chain_ms}
 
 
+MIGUEL_T, MIGUEL_PATCH, MIGUEL_OVERLAP = 100, (16, 16), (8, 0)
+
+
+def miguel_survey():
+    """The Miguel survey's dataset (the synthetic 410 x 105120 line), its 63
+    window ids, seed patches, ground truth and class count."""
+    from radar_sounder_crw_tpu_torch.data import create_dataset, get_reference
+
+    T, patch = MIGUEL_T, MIGUEL_PATCH
+    ds = create_dataset(id=1, length=T, dim=patch, overlap=MIGUEL_OVERLAP, full=True)
+    geo = ds.geo
+    nclasses, seg = get_reference(id=1, h=geo.nh * patch[0], w=0, length=T, dim=patch)
+    rg_len, rg_h = geo.rg_len(), geo.rg_h()
+    R = seg.shape[-1] // rg_len
+    seg = seg[:, : R * rg_len]
+    ids = list(range(0, len(ds), T))[:R]
+    refs = [seg[:rg_h, rg_len * t : rg_len * t + patch[1]] for t in range(R)]
+    if (R, geo.nh, len(ids)) != (63, 50, 63):
+        raise SystemExit(f"survey geometry R={R} N={geo.nh} windows={len(ids)}, expected "
+                         "63/50/63")
+    return ds, ids, refs, seg, nclasses
+
+
 def survey_phase(smi):
     """Phases 7 and 8: the full-width Miguel survey through the product
     entry point, on the whole-sequence kernels and on the plain route.
     Returns (launches by kernel on the survey's main path, launches by
     kernel on the cuda_resident path, what bounds the whole-sequence
     kernels, times)."""
-    from radar_sounder_crw_tpu_torch.data import create_dataset, get_reference
     from radar_sounder_crw_tpu_torch.infer import (
         PropagationPipeline,
         correction_pixel_offset,
@@ -311,19 +356,13 @@ def survey_phase(smi):
         radius_mask,
     )
 
-    T, patch, overlap = 100, (16, 16), (8, 0)
+    T, patch, overlap = MIGUEL_T, MIGUEL_PATCH, MIGUEL_OVERLAP
     t0 = time.perf_counter()
-    ds = create_dataset(id=1, length=T, dim=patch, overlap=overlap, full=True)
+    ds, ids, refs, seg, nclasses = miguel_survey()
     geo = ds.geo
     N = geo.nh
-    nclasses, seg = get_reference(id=1, h=N * patch[0], w=0, length=T, dim=patch)
-    rg_len, rg_h = geo.rg_len(), geo.rg_h()
-    R = seg.shape[-1] // rg_len
-    seg = seg[:, : R * rg_len]
-    ids = list(range(0, len(ds), T))[:R]
-    refs = [seg[:rg_h, rg_len * t : rg_len * t + patch[1]] for t in range(R)]
-    if (R, N, len(ids)) != (63, 50, 63):
-        raise SystemExit(f"survey geometry R={R} N={N} windows={len(ids)}, expected 63/50/63")
+    rg_len = geo.rg_len()
+    R = len(ids)
     phase("survey", f"Miguel line {ds.rg.shape} -> {R} windows of T={T}, N={N} "
           f"(set-up {time.perf_counter() - t0:.1f} s)")
     cfg = LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=20)
@@ -961,6 +1000,225 @@ def unet_phase(smi):
     return times
 
 
+TUNE_SCALE = "4"  # RSCRW_SYNTH_SCALE: dataset 0's synthetic 410 x 27330 line cut to 410 x 6832
+TUNE_CMD = ["-m", "radar_sounder_crw_tpu_torch.cli.train", "--tune", "--tune_samples", "4"]
+TUNE_TRIAL_EPOCHS = 7  # 4 samples at max_t 3, grace 1, reduction 2: rungs of 4, 2 and 1
+
+
+def tune_phase():
+    """Phase 19: the ASHA sweep as the user starts it, `cli.train --tune
+    --tune_samples 4 --tune_ckpt_dir <dir>` at the tuner's defaults (dataset
+    0, ResNet-10 at full width, T = 8, 32x32 patches, the reference grid,
+    max_t 3), the synthetic line's length cut by RSCRW_SYNTH_SCALE; then the
+    same command again, which must resume with every rung done, train
+    nothing (the sweep ledger unchanged, the last rung's line alone, read
+    back) and report the same best trial."""
+    import shutil
+
+    ckpt = OUT / "tune_sweep"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = {**os.environ, "RSCRW_SYNTH_SCALE": TUNE_SCALE}
+    runs, ledgers, walls = {}, {}, {}
+    for tag in ("sweep", "resume"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *TUNE_CMD, "--tune_ckpt_dir", str(ckpt)], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=900)
+        walls[tag] = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        runs[tag] = {"rungs": [ln for ln in lines if ln.startswith("[asha] trial ")],
+                     "best": [ln for ln in lines if ln.startswith("Best trial ")],
+                     "resumed": any(ln.startswith("[asha] resuming sweep") for ln in lines)}
+        phase("tune", f"{tag}: exit {proc.returncode}, {walls[tag]:.2f} s wall, "
+              f"{len(runs[tag]['rungs'])} rung lines; " + "; ".join(runs[tag]["best"]))
+        if proc.returncode != 0 or len(runs[tag]["best"]) != 2:
+            raise SystemExit(f"cli.train --tune ({tag}) failed:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+        ledgers[tag] = json.loads((ckpt / "sweep.json").read_text())
+    sweep, resume = runs["sweep"], runs["resume"]
+    epochs = [t["epoch_times"] for t in ledgers["sweep"]["trials"]]
+    phase("tune", "epoch s by trial " + "; ".join(
+        f"{i}: " + ", ".join(f"{e:.2f}" for e in ts) for i, ts in enumerate(epochs))
+        + "; rung lines of the sweep: " + " | ".join(sweep["rungs"]))
+    checks = {
+        "seven trial-epochs": len(sweep["rungs"]) == TUNE_TRIAL_EPOCHS
+        and sum(len(ts) for ts in epochs) == TUNE_TRIAL_EPOCHS,
+        "resumed": resume["resumed"],
+        "resume trained nothing": ledgers["resume"] == ledgers["sweep"],
+        "only the last rung read back": resume["rungs"] == sweep["rungs"][-1:],
+        "same best trial": resume["best"] == sweep["best"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    phase("tune", "checks: " + ", ".join(f"{k}={ok}" for k, ok in checks.items()))
+    if failed:
+        raise SystemExit(f"tune checks failed: {failed}")
+    shutil.rmtree(ckpt)  # four trials' checkpoints, ~0.1 GB: not brought back
+    return {"tune_sweep_s": walls["sweep"], "tune_resume_s": walls["resume"],
+            "tune_epoch_s": epochs}
+
+
+DP_FLAG = "--data-parallel-rank"
+
+
+def dp_state_digest(state) -> str:
+    """A digest of a state dict's bytes: two ranks hold the same state iff
+    their digests agree."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank_main(backend: str) -> int:
+    """One rank of the data_parallel phase, started by torch.distributed.run
+    (`chip_smoke.py --data-parallel-rank nccl|gloo`): CRW steps at
+    bench.py's configuration and the Miguel survey on this rank's mesh and
+    on its device alone; rank 0 prints one `DP_RESULT {json}` line, every
+    rank a `DP_DIGEST` line of its trained state."""
+    import torch.distributed as dist
+
+    from radar_sounder_crw_tpu_torch.data import RGWindows, gather_windows, synthetic_radargram
+    from radar_sounder_crw_tpu_torch.infer import PropagationPipeline
+    from radar_sounder_crw_tpu_torch.models import create_model
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+    from radar_sounder_crw_tpu_torch.ops.labelprop import LabelPropConfig
+    from radar_sounder_crw_tpu_torch.parallel import Mesh, init_distributed, make_mesh
+    from radar_sounder_crw_tpu_torch.train import CRWTrainConfig, CRWTrainer
+    from radar_sounder_crw_tpu_torch.utils import parity_mode
+
+    parity_mode()
+    if backend == "nccl":
+        init_distributed()  # this rank on cuda:LOCAL_RANK
+        mesh = make_mesh()
+    else:  # every rank on the one card, gloo carrying CUDA tensors
+        dist.init_process_group("gloo", init_method="env://")
+        mesh = make_mesh(["cuda:0"] * dist.get_world_size())
+    alone = Mesh(mesh.device)
+    out = {"backend": dist.get_backend(), "world": mesh.size, "device": str(mesh.device)}
+    try:
+        # CRW steps at bench.py:139's configuration, the batch on the card
+        B, T, patch, overlap = 8, 20, (16, 16), (8, 0)
+        rg, _ = synthetic_radargram(H=912, W=4096, nclasses=5, seed=13)
+        ds = RGWindows(rg, length=T, dim=patch, overlap=overlap)
+        seq = gather_windows(torch.as_tensor(rg, device=mesh.device), np.arange(B),
+                             ds.geo).contiguous()
+        cfg = CRWTrainConfig(model=1, patch_size=patch, seq_length=T, overlap=overlap,
+                             batch_size=B, lr=1e-3, tau=0.01)
+        trainers, losses, states = {}, {}, {}
+        torch.backends.cudnn.deterministic = True  # the same kernels' sums both times
+        for tag, m in (("mesh", mesh), ("alone", alone)):
+            trainers[tag] = CRWTrainer(cfg, mesh=m)
+            trainers[tag].init_state(tuple(seq.shape[1:]))
+            losses[tag] = [float(trainers[tag].train_step(seq))]
+            states[tag] = {k: v.clone() for k, v in trainers[tag].model.state_dict().items()}
+            losses[tag] += [float(trainers[tag].train_step(seq)) for _ in range(2)]
+        torch.backends.cudnn.deterministic = False
+        out["losses"] = losses
+        # after three steps; the statistics after the first, from one init
+        out["params_equal"] = all(torch.equal(v, trainers["alone"].model.state_dict()[k])
+                                  for k, v in trainers["mesh"].model.state_dict().items())
+        stats_err = 0.0  # 1.0 = at rtol 1e-5 / atol 1e-6, the one-pass statistics' bound
+        for k, v in states["alone"].items():
+            if k.endswith(("running_mean", "running_var")):
+                err = (states["mesh"][k] - v).abs() / (1e-6 + 1e-5 * v.abs())
+                stats_err = max(stats_err, float(err.max()))
+        out["stats_err"] = stats_err
+        for tag, tr in trainers.items():
+            for _ in range(2):
+                tr.train_step(seq)
+            out[f"crw_step_{tag}_ms"], out[f"crw_step_{tag}_wall_ms"] = step_times(
+                lambda: tr.train_step(seq), 10)
+        print(f"DP_DIGEST {mesh.rank} {dp_state_digest(trainers['mesh'].model.state_dict())}",
+              flush=True)
+        del trainers, states
+        torch.cuda.empty_cache()
+
+        # the Miguel survey's forward pass with change detection
+        ds, ids, refs, _, nclasses = miguel_survey()
+        pipe = PropagationPipeline(
+            create_model(1, False, device=mesh.device, seed=0),
+            LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=20), nclasses,
+            cache_embeddings=False, device=mesh.device)
+        pipe.propagate_survey(ds, ids[:2], refs[:2], mesh=alone)  # warm-up
+        survey = {}
+        for tag, m in (("mesh", mesh), ("alone", alone)):
+            reset_launches()
+            maps, change = pipe.propagate_survey(ds, ids, refs, mesh=m, detect_change=True)
+            torch.cuda.synchronize()
+            survey[tag] = (maps, change, dict(labelprop_cuda.launches))
+            out[f"survey_{tag}_ms"] = wall_ms(
+                lambda: pipe.propagate_survey(ds, ids, refs, mesh=m), reps=3)
+        out["survey_maps_equal"] = bool(np.array_equal(survey["mesh"][0], survey["alone"][0]))
+        out["survey_change_equal"] = survey["mesh"][1] == survey["alone"][1]
+        out["survey_shape"] = list(survey["mesh"][0].shape)
+        out["survey_launches"] = {tag: v[2] for tag, v in survey.items()}
+    finally:
+        dist.destroy_process_group()
+    if mesh.rank == 0:
+        print("DP_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def data_parallel_phase(smi):
+    """Phase 20: data parallel under `torch.distributed.run`: one rank over
+    NCCL (its collectives over one rank are the identity: CRW steps and the
+    survey's maps equal the mesh-free ones exactly), then two ranks on the
+    one card over gloo with CUDA tensors, held to the one-rank results by
+    the CPU tests' rules (tests/test_torch_parallel.py). NCCL refuses two
+    ranks on one device; where gloo cannot run either, the reason is
+    printed."""
+    result = {}
+    for backend, nproc in (("nccl", 1), ("gloo", 2)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(nproc), str(ROOT / "chip_smoke.py"), DP_FLAG, backend],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        res = [json.loads(ln.split(" ", 1)[1]) for ln in lines if ln.startswith("DP_RESULT ")]
+        digests = {ln.split()[1]: ln.split()[2] for ln in lines if ln.startswith("DP_DIGEST ")}
+        if backend == "gloo" and proc.returncode != 0:
+            phase("data_parallel", f"{nproc} ranks over gloo on one card did not run (exit "
+                  f"{proc.returncode}, {wall:.1f} s):\n{proc.stderr[-3000:]}")
+            result["gloo_2rank"] = {"ran": False, "exit": proc.returncode,
+                                    "stderr_tail": proc.stderr[-1500:]}
+            continue
+        if proc.returncode != 0 or len(res) != 1 or len(digests) != nproc:
+            raise SystemExit(f"data_parallel over {backend} failed (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        r = res[0]
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"]["mesh"], r["losses"]["alone"])]
+        per_rank_seq = [v["prop_seq"] for v in r["survey_launches"].values()]
+        phase("data_parallel", f"{r['backend']} world {r['world']} on {r['device']}: CRW steps "
+              f"losses {r['losses']['mesh']} vs alone {r['losses']['alone']} (rel "
+              f"{', '.join(f'{x:.2e}' for x in rel)}), params after 3 steps equal "
+              f"{r['params_equal']}, running stats after step 1 at {r['stats_err']:.3f} of "
+              f"rtol 1e-5 / atol 1e-6, ranks' states equal "
+              f"{len(set(digests.values())) == 1}; {r['crw_step_mesh_ms']:.2f} ms a step on the "
+              f"mesh vs {r['crw_step_alone_ms']:.2f} alone (events, median of 10); survey "
+              f"{r['survey_shape']} maps equal {r['survey_maps_equal']}, change indices equal "
+              f"{r['survey_change_equal']}, prop_seq launches (mesh, alone) {per_rank_seq}, "
+              f"{r['survey_mesh_ms']:.2f} ms vs {r['survey_alone_ms']:.2f} ms wall; {wall:.1f} s")
+        ok = (r["survey_maps_equal"] and r["survey_change_equal"] and per_rank_seq == [1, 1]
+              and len(set(digests.values())) == 1)
+        if r["world"] == 1:  # an all-reduce over one rank is the identity
+            ok = ok and r["params_equal"] and r["losses"]["mesh"] == r["losses"]["alone"]
+        else:  # one step from one init, as tests/test_torch_parallel.py holds it; later
+            # steps are printed, not held: Adam's first update turns float noise in
+            # gradients near zero into jumps of up to lr
+            ok = ok and rel[0] <= 1e-5 and r["stats_err"] <= 1.0
+        if not ok:
+            raise SystemExit(f"data_parallel over {backend}: the mesh disagrees with one device")
+        result[f"{backend}_{nproc}rank"] = {**r, "ran": True, "loss_rel": rel, "wall_s": wall}
+    phase("times", f"{smi} | " + " ".join(
+        f"{k}_{m}={v[m]:.4f}" for k, v in result.items() if v.get("ran")
+        for m in ("crw_step_mesh_ms", "crw_step_alone_ms", "survey_mesh_ms", "survey_alone_ms")))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1353,7 +1611,11 @@ def main() -> int:
     train_times.update(trained_inference_phase(pts))
     train_times.update(unet_phase(smi))
 
-    # 19. results ---------------------------------------------------------------
+    # 19-20. the tuner, data parallel -----------------------------------------------
+    train_times.update(tune_phase())
+    parallel = data_parallel_phase(smi)
+
+    # 21. results ---------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "prop_step",
@@ -1421,11 +1683,13 @@ def main() -> int:
         "launches_annotate": annotate_launches["prop_all"],
         "launches_auto_limits": auto_launches["prop_all"],
     }], "times": times, "survey_times": survey_times, "cli_times": cli_times,
-        "train_times": train_times}))
+        "train_times": train_times, "data_parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == DP_FLAG:
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -3,9 +3,13 @@ output folders and the encoder loader (the role of scripts/_common.py)."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 
+import torch.distributed as dist
+
 from ..models import create_model, load_torch_checkpoint
+from ..parallel import init_distributed
 from ..ops.labelprop import KERNELS
 from ..utils.device import parity_mode, resolve_device
 
@@ -22,6 +26,26 @@ def normalize_pair(v) -> tuple[int, int]:
 def ensure_dirs(output_folder: str):
     for sub in ("", "models", "output"):
         os.makedirs(os.path.join(output_folder, sub), exist_ok=True)
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """The block as one rank of the process group that `torch.distributed.run`
+    describes, when it started this process (parallel.init_distributed with
+    `device`: NCCL, or gloo for the CPU); left at the end. Yields whether
+    this process is rank 0, the one that prints and writes files: the
+    others' stdout goes to os.devnull."""
+    joined = init_distributed(device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    try:
+        with contextlib.ExitStack() as stack:
+            if not lead:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            yield lead
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def add_device_args(parser, kernel: bool = True):

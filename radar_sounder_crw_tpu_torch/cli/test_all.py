@@ -12,7 +12,9 @@ timings, and the predicted map as int8 `predicted_map.npy` and
 the once-uploaded radargram; on a GPU one launch of the whole-sequence
 kernel per pass) and the corrections in buckets of equal length. The
 reverse pass always sees true seq_length windows (window geometry is
-immutable), as on the JAX side.
+immutable), as on the JAX side. Started by `torch.distributed.run`, each
+--batched survey call splits its radargrams over the ranks (one a device);
+rank 0 alone prints and writes the files.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import time
 
 import numpy as np
 
-from ._common import add_device_args, ensure_dirs, load_encoder, normalize_pair
+from ._common import add_device_args, ensure_dirs, load_encoder, normalize_pair, process_group
 
 
 def get_args_parser():
@@ -62,6 +64,11 @@ def get_args_parser():
 
 
 def main(args):
+    with process_group(args.device) as lead:
+        return _evaluate(args, lead)
+
+
+def _evaluate(args, lead: bool):
     from ..data import create_dataset, get_reference, save_pt
     from ..infer import (
         PropagationPipeline,
@@ -111,7 +118,9 @@ def main(args):
         else list(range(tot_rg))
     )
     print("\nList of items picked from the dataset:", rg_idx_list, "\n")
-    ensure_dirs(args.output_folder)
+    plots = lead and not args.no_plots
+    if lead:
+        ensure_dirs(args.output_folder)
 
     seg_list, change_list = [], []
     if args.batched:
@@ -127,7 +136,7 @@ def main(args):
         )
         for t in range(len(rg_idx_list)):
             pred_px = pipe.prediction_to_pixels(preds[t], (seg.shape[0], rg_len))
-            if not args.no_plots:
+            if plots:
                 plot_segmentation(
                     pred_px,
                     save=os.path.join(args.output_folder, f"im{t}.png"),
@@ -142,7 +151,7 @@ def main(args):
             seg_ref = seg[:rg_h, rg_len * t : rg_len * t + W]
             res = pipe(seq, seg_ref)
             pred_px = pipe.prediction_to_pixels(res.prediction, (seg.shape[0], rg_len))
-            if not args.no_plots:
+            if plots:
                 plot_segmentation(
                     pred_px,
                     save=os.path.join(args.output_folder, f"im{t}.png"),
@@ -175,7 +184,7 @@ def main(args):
 
         def apply_correction(t, pixel_offset, pred):
             seg_list[t] = splice_correction(seg_list[t], pred, pixel_offset)
-            if not args.no_plots:
+            if plots:
                 plot_segmentation(
                     seg_list[t],
                     save=os.path.join(args.output_folder, f"im{t}c.png"),
@@ -217,11 +226,13 @@ def main(args):
                     print(f"  correction failed: {e}")
 
     final_pred = np.concatenate(seg_list, axis=1)
-    np.save(os.path.join(args.output_folder, "predicted_map.npy"), final_pred.astype(np.int8))
-    save_pt(
-        os.path.join(args.output_folder, "predicted_map.pt"),
-        final_pred.astype(np.int8),
-    )
+    if lead:
+        np.save(os.path.join(args.output_folder, "predicted_map.npy"),
+                final_pred.astype(np.int8))
+        save_pt(
+            os.path.join(args.output_folder, "predicted_map.pt"),
+            final_pred.astype(np.int8),
+        )
     final_flat = final_pred.ravel()
     gt_flat = seg.ravel()
 

@@ -4,7 +4,9 @@ scripts/test_unet.py): width-64 full-height strips, one-hot ground truth,
 classification report, the confusion matrix and `mIoU:` on the held-out
 strips. The reference's softmax-then-cross-entropy quirk is kept by
 default; --no_quirk trains with standard CE. Besides the script's flags:
-`--device` (default cuda).
+`--device` (default cuda). Started by `torch.distributed.run`, training
+and the held-out maps are data parallel over the ranks; rank 0 alone
+prints.
 
     python -m radar_sounder_crw_tpu_torch.cli.test_unet [--epochs 5] [--bf16]
 """
@@ -16,7 +18,7 @@ import argparse
 import numpy as np
 import torch
 
-from ._common import add_device_args, normalize_pair
+from ._common import add_device_args, normalize_pair, process_group
 
 
 def get_args_parser():
@@ -34,7 +36,13 @@ def get_args_parser():
 
 
 def main(args):
+    with process_group(args.device):
+        return _run(args)
+
+
+def _run(args):
     from ..data import load_raw_pair
+    from ..parallel import default_mesh
     from ..ops import classification_report, confusion_matrix, miou
     from ..train.unet_trainer import (
         UNetTrainConfig,
@@ -63,7 +71,7 @@ def main(args):
         quirk_double_softmax=not args.no_quirk,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
     )
-    trainer = UNetTrainer(cfg, device=args.device)
+    trainer = UNetTrainer(cfg, mesh=default_mesh(args.device))
     trainer.fit(x[tr_idx], y[tr_idx])
 
     preds, refs = [], []

@@ -20,6 +20,14 @@ named kernel runs on every path).
 `bn_train_mode=True` normalizes with batch statistics, as the upstream test
 scripts that never leave train mode do; the running statistics are left
 untouched.
+
+The survey paths take a `mesh` (parallel/mesh.py; default the process
+group's when one is initialised, else the pipeline's device alone): the
+radargram axis R is padded to a multiple of the mesh size, each rank
+encodes and propagates its R / size radargrams (the route chosen for its
+own batch, so the whole-sequence kernel launches once per rank and pass),
+and the class maps, change signals and xent maps are gathered, so every
+rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from ..ops.labelprop import (
 )
 from ..ops.pelt import detect_change_point
 from ..ops.xent_metric import column_diffs, horizontality_xent
+from ..parallel.mesh import all_gather, default_mesh, pad_to_multiple, shard_batch
 from ..utils.device import resolve_device
 from ..utils.pos_embed import maybe_pos_embed
 from ..utils.resize import resize_nearest
@@ -284,25 +293,39 @@ class PropagationPipeline:
         return pred, sigs, (xents if return_xent else None)
 
     def propagate_batch(
-        self, seqs, seg_refs, use_last: bool = False, detect_change: bool = False,
+        self, seqs, seg_refs, mesh=None, use_last: bool = False, detect_change: bool = False,
         return_xent: bool = False,
     ):
         """Full-survey inference on host-staged windows: seqs (R, T, N, h, w)
-        (host array or tensor), seg_refs: R seed segmentation patches.
+        (host array or tensor), seg_refs: R seed segmentation patches, split
+        over `mesh` (see the module docstring).
 
         Returns (R, N, T) int32 predictions; with detect_change=True a tuple
         (predictions, change indices), the change detection running on the
         batched xent signal (device) and per-radargram PELT (host); with
         return_xent=True the (R, N, T-1) xent maps are appended last."""
+        mesh = default_mesh(self.device) if mesh is None else mesh
         seqs = torch.as_tensor(seqs, dtype=torch.float32, device=self.device)
         if use_last:
             seqs = seqs.flip(1)
-        R, T, N = seqs.shape[:3]
-        seeds = torch.as_tensor(self._stack_seed_labels(seg_refs, N), device=self.device)
+        T, N = seqs.shape[1:3]
+        seqs, real = pad_to_multiple(seqs, mesh.size)
+        seeds, _ = pad_to_multiple(self._stack_seed_labels(seg_refs, N), mesh.size)
+        if mesh.group is not None:
+            seqs, seeds = shard_batch(seqs, mesh), shard_batch(seeds, mesh)
         pred, sigs, xents = self._batched_body(
-            seqs, seeds, compute_xent=detect_change and T >= 4, return_xent=return_xent
+            seqs, torch.as_tensor(seeds, device=self.device),
+            compute_xent=detect_change and T >= 4, return_xent=return_xent,
         )
-        return self._fetch_batched(pred, sigs, xents, R, detect_change, return_xent)
+        return self._fetch_batched(*self._gather(mesh, pred, sigs, xents), real, detect_change,
+                                   return_xent)
+
+    @staticmethod
+    def _gather(mesh, *outs):
+        """Each rank's outputs (None stays None) gathered over the mesh."""
+        if mesh.group is None:
+            return outs
+        return tuple(None if t is None else all_gather(t, mesh) for t in outs)
 
     def _fetch_batched(self, pred, sigs, xents, real, detect_change, return_xent):
         """The host tail of the batched paths: fetch, keep the first `real`
@@ -322,7 +345,7 @@ class PropagationPipeline:
 
     def propagate_survey(
         self, source, window_ids, seg_refs, *, length: int | None = None,
-        frame_offsets=None, use_last: bool = False, detect_change: bool = False,
+        frame_offsets=None, mesh=None, use_last: bool = False, detect_change: bool = False,
         return_xent: bool = False,
     ):
         """Full-survey inference with windows gathered on the device: exactly
@@ -330,18 +353,19 @@ class PropagationPipeline:
         `propagate_batch` returns for the same windows, value for value."""
         pred, sigs, xents, real = self.propagate_survey_device(
             source, window_ids, seg_refs, length=length, frame_offsets=frame_offsets,
-            use_last=use_last, detect_change=detect_change, return_xent=return_xent,
+            mesh=mesh, use_last=use_last, detect_change=detect_change, return_xent=return_xent,
         )
         return self._fetch_batched(pred, sigs, xents, real, detect_change, return_xent)
 
     def propagate_survey_device(
         self, source, window_ids, seg_refs, *, length: int | None = None,
-        frame_offsets=None, use_last: bool = False, detect_change: bool = False,
+        frame_offsets=None, mesh=None, use_last: bool = False, detect_change: bool = False,
         return_xent: bool = False,
     ):
         """The device work of `propagate_survey` without the host fetch:
         returns ((B, T', N) device class map, change signals or None, xent
-        maps or None, real = B).
+        maps or None, real), B = real, the number of windows, rounded up to
+        the mesh size; every rank holds all B.
 
         The radargram(s) behind `source` are uploaded once (memoized on this
         pipeline) and every pass (forward, reverse, correction) gathers its
@@ -356,7 +380,7 @@ class PropagationPipeline:
           mapping: window i shifted by k frames starts at frame k of window
           i (frames and windows share the (w - ow) column stride), which is
           how the correction tails dataset[i][change_idx:] are gathered.
-        use_last / detect_change / return_xent: as in propagate_batch."""
+        mesh / use_last / detect_change / return_xent: as in propagate_batch."""
         from ..data.device_windows import gather_windows, resident_source
 
         rs = resident_source(source)
@@ -418,15 +442,20 @@ class PropagationPipeline:
                     f"{win_col!r}"
                 )
 
+        mesh = default_mesh(self.device) if mesh is None else mesh
         rg_dev = self._resident_radargram(rg_host)
-        seeds = torch.as_tensor(self._stack_seed_labels(seg_refs, geo.nh), device=self.device)
+        gather_ids, real = pad_to_multiple(gather_ids, mesh.size)
+        seeds, _ = pad_to_multiple(self._stack_seed_labels(seg_refs, geo.nh), mesh.size)
+        if mesh.group is not None:
+            gather_ids, seeds = shard_batch(gather_ids, mesh), shard_batch(seeds, mesh)
         seqs = gather_windows(rg_dev, gather_ids, geo, T)
         if use_last:
             seqs = seqs.flip(1)
         pred, sigs, xents = self._batched_body(
-            seqs, seeds, compute_xent=detect_change and T >= 4, return_xent=return_xent
+            seqs, torch.as_tensor(seeds, device=self.device),
+            compute_xent=detect_change and T >= 4, return_xent=return_xent,
         )
-        return pred, sigs, xents, len(ids)
+        return (*self._gather(mesh, pred, sigs, xents), real)
 
     def _stack_seed_labels(self, seg_refs, n_nodes: int) -> np.ndarray:
         """(R, N) compact int seed labels for the batched paths; the one-hot

@@ -1,6 +1,6 @@
 from .checkpoint import load_torch_checkpoint, read_state_dict
 from .encoders import CNNEncoder, ResNetEncoder, create_model, param_count
-from .resnet import BasicBlock, BatchNorm, ResNetCore, frozen_statistics
+from .resnet import BasicBlock, BatchNorm, ResNetCore, cross_rank_statistics, frozen_statistics
 from .unet import UNet, create_unet
 from .weights import state_dict_from_jax
 
@@ -13,6 +13,7 @@ __all__ = [
     "UNet",
     "create_model",
     "create_unet",
+    "cross_rank_statistics",
     "frozen_statistics",
     "load_torch_checkpoint",
     "param_count",

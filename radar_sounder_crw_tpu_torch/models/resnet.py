@@ -18,6 +18,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax momentum 0.9
 
@@ -34,7 +36,11 @@ class BatchNorm(nn.BatchNorm2d):
     larger. The buffers are left alone when `track_running_stats` is False
     (`frozen_statistics`). In eval mode the module is `nn.BatchNorm2d` (a
     non-float32 input is normalised in float32 and cast back, as flax does).
-    State-dict keys are those of `nn.BatchNorm2d`."""
+    State-dict keys are those of `nn.BatchNorm2d`. Inside
+    `cross_rank_statistics` the batch statistics are those of the batch of
+    every rank of a mesh (`stats_mesh`)."""
+
+    stats_mesh = None  # set by cross_rank_statistics only
 
     def __init__(self, channels: int, twopass: bool = False):
         super().__init__(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -46,10 +52,13 @@ class BatchNorm(nn.BatchNorm2d):
                 return super().forward(x)
             return super().forward(x.float()).to(x.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        if self.twopass:
+        if self.stats_mesh is not None:
+            mean, var = _cross_rank_moments(xf, self.stats_mesh, self.twopass)
+        elif self.twopass:
+            mean = xf.mean(dim=(0, 2, 3))
             var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
         else:
+            mean = xf.mean(dim=(0, 2, 3))
             var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
         if self.track_running_stats:
             decay = 1.0 - self.momentum
@@ -60,6 +69,41 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+def _cross_rank_moments(xf: torch.Tensor, mesh, twopass: bool):
+    """Per-channel float32 mean and biased variance of the batch of every
+    rank of `mesh` (equal shards, so the batch's moments are the mean of the
+    ranks'): flax's one-pass rule from E[x] and E[x^2] all-reduced in one
+    call, or with `twopass` E[x] first, then E[(x - mean)^2]. The
+    all-reduce carries the gradient; over one rank the arithmetic is the
+    local rule's, bit for bit."""
+    dims = (0, 2, 3)
+    if twopass:
+        mean = all_reduce_sum(xf.mean(dim=dims), mesh) / mesh.size
+        var = all_reduce_sum((xf - mean[:, None, None]).square().mean(dim=dims), mesh) / mesh.size
+        return mean, var
+    moments = all_reduce_sum(torch.stack([xf.mean(dim=dims), xf.square().mean(dim=dims)]),
+                             mesh) / mesh.size
+    return moments[0], (moments[1] - moments[0].square()).clamp_min(0.0)
+
+
+@contextlib.contextmanager
+def cross_rank_statistics(model: nn.Module, mesh):
+    """Every BatchNorm of `model` takes its train-mode batch statistics over
+    all ranks of `mesh`, each rank holding an equal shard of the batch: the
+    statistics, the normalisation and the running statistics are then those
+    of the whole batch on one device. Only a trainer's sharded step enters
+    it; a replicated partial batch, eval and `bn_train_mode` inference keep
+    their statistics to their own rank."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.stats_mesh = mesh
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_mesh = None
 
 
 @contextlib.contextmanager

@@ -1,16 +1,23 @@
-"""CRW unsupervised trainer on one device: Adam, the train step, the epoch
-loop.
+"""CRW unsupervised trainer: Adam, the train step, the epoch loop, data
+parallel over a mesh (parallel/mesh.py).
 
 Follows radar_sounder_crw_tpu/train/crw_trainer.py (itself the reference
 trainer, scripts/train.py:39-93): Adam, per-epoch mean loss and wall time,
 batches shuffled by (seed, global epoch index), seed 11, the encoder
 exported at the end. A step encodes the B*T*N patches in train mode, takes
 the per-item CRW loss, weights it (sum(per_item * w) / sum(w)), backpropagates
-and steps Adam; a partial last batch is simply a smaller batch. Batches are
-gathered on the device from the radargram uploaded once (`device_resident`)
-or stacked on the host, the next one staged while the current step runs.
-The TPU knobs `steps_per_dispatch` and `s2d_stem` are not ported; neither
-is the mesh (one device).
+and steps Adam. Batches are gathered on the device from the radargram
+uploaded once (`device_resident`) or stacked on the host, the next one
+staged while the current step runs.
+
+On a mesh of several ranks (one process a device) a batch that the mesh
+divides runs sharded: each rank takes its rows, BatchNorm takes its
+statistics over the ranks, each rank's loss is its rows' share of the
+whole batch's, and the gradients and the loss are summed over the ranks in
+one buffer before Adam, so every rank holds the parameters one device would.
+A batch that the mesh does not divide (the partial last one) runs whole on
+every rank with no collective, which keeps its BatchNorm statistics exact.
+The TPU knobs `steps_per_dispatch` and `s2d_stem` are not ported.
 """
 
 from __future__ import annotations
@@ -26,9 +33,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.device_windows import gather_windows, resident_source
 from ..models import create_model, param_count
-from ..models.resnet import frozen_statistics
+from ..models.resnet import cross_rank_statistics, frozen_statistics
 from ..ops.crw import crw_loss
-from ..utils.device import parity_mode, resolve_device
+from ..parallel.mesh import all_reduce_grads, default_mesh, shard_batch
+from ..utils.device import parity_mode
 from ..utils.pos_embed import maybe_pos_embed
 
 
@@ -60,7 +68,13 @@ def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
     """(seq (B, T, N, h, w), weights (B,)) -> the step's loss (a detached
     0-d tensor), after the Adam update. With remat the encoder forward runs
     under activation checkpointing; its recompute leaves the BatchNorm
-    running statistics alone, so they are updated once a step."""
+    running statistics alone, so they are updated once a step.
+
+    With `mesh`, seq and weights are this rank's shard of a batch whose
+    weights sum to `total`: BatchNorm takes its statistics over the ranks
+    (the recompute of remat too, so every rank issues the same
+    collectives), the rank's loss is sum(per_item * w) / total, and the
+    gradients and the loss are summed over the ranks before Adam."""
 
     def encode(seq):
         B, T, N, h, w = seq.shape
@@ -70,30 +84,39 @@ def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
     def no_update_on_recompute():
         return contextlib.nullcontext(), frozen_statistics(model)
 
-    def step(seq, weights):
+    def step(seq, weights, mesh=None, total=None):
         model.train()
-        if remat:
-            emb = checkpoint(encode, seq, use_reentrant=False,
-                             context_fn=no_update_on_recompute)
-        else:
-            emb = encode(seq)
-        per_item, _ = crw_loss(emb, tau, per_item=True)
-        loss = (per_item * weights).sum() / weights.sum()
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        stats = contextlib.nullcontext() if mesh is None else cross_rank_statistics(model, mesh)
+        with stats:
+            if remat:
+                emb = checkpoint(encode, seq, use_reentrant=False,
+                                 context_fn=no_update_on_recompute)
+            else:
+                emb = encode(seq)
+            per_item, _ = crw_loss(emb, tau, per_item=True)
+            loss = (per_item * weights).sum() / (weights.sum() if total is None else total)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce_grads(model.parameters(), mesh, loss)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
 
 class CRWTrainer:
-    """Owns the encoder, Adam, the step and the epoch loop on one device
-    (default cuda; raises without it, CPU runs pass device='cpu')."""
+    """Owns the encoder, Adam, the step and the epoch loop on this rank's
+    device of `mesh`. Without a mesh: the process group's when one is
+    initialised (parallel.init_distributed), else one device, `device`
+    (default cuda; raises without it, CPU runs pass device='cpu'). Every
+    rank holds the same encoder and Adam state; rank 0 alone logs."""
 
-    def __init__(self, config: CRWTrainConfig, device=None):
+    def __init__(self, config: CRWTrainConfig, device=None, mesh=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = default_mesh(device) if mesh is None else mesh
+        self.device = self.mesh.device
         parity_mode()
         self.model = None
         self.optimizer = None
@@ -139,10 +162,22 @@ class CRWTrainer:
 
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step on a batch (B, T, N, h, w) of any size: a host
-        array, or a tensor already on the device (after `init_state`)."""
+        array, or a tensor already on the device (after `init_state`). The
+        loss is the whole batch's, on every rank."""
+        B = batch.shape[0]
+        sharded = self.mesh.shards(B)
+        if sharded:
+            batch = shard_batch(batch, self.mesh)
         seq = batch if isinstance(batch, torch.Tensor) else self._upload(batch)
+        return self._run(seq.to(self.device, torch.float32), B, sharded)
+
+    def _run(self, seq: torch.Tensor, batch_size: int, sharded: bool) -> torch.Tensor:
+        """The step on this rank's rows `seq` of a batch of `batch_size`."""
         weights = torch.ones(seq.shape[0], dtype=torch.float32, device=self.device)
-        loss = self._step_fn(seq.to(self.device, torch.float32), weights)
+        if sharded:
+            loss = self._step_fn(seq, weights, self.mesh, float(batch_size))
+        else:
+            loss = self._step_fn(seq, weights)
         self.step += 1
         return loss
 
@@ -173,8 +208,11 @@ class CRWTrainer:
         permutation keyed by (seed, global epoch index), batches in order,
         the mean loss and wall time logged. A restored trainer continues the
         schedule from step // steps_per_epoch (same dataset length and batch
-        size as the run that saved it)."""
+        size as the run that saved it). On a mesh every rank runs the same
+        schedule on its rows of each batch; rank 0 alone logs."""
         cfg = self.config
+        if self.mesh.rank != 0:
+            log = lambda _msg: None  # noqa: E731 (rank 0 alone logs)
         if self.model is None:
             self.init_state(dataset[0].shape)
         steps_per_epoch = max(1, -(-len(dataset) // cfg.batch_size))
@@ -190,21 +228,27 @@ class CRWTrainer:
             starts = list(range(0, len(order), cfg.batch_size))
 
             def stage(si):
+                """(this rank's rows of batch si on the device, batch size,
+                sharded)."""
                 idxs = order[starts[si]: starts[si] + cfg.batch_size]
+                B, sharded = len(idxs), self.mesh.shards(len(idxs))
+                if sharded:
+                    idxs = shard_batch(idxs, self.mesh)
                 if resident is not None:
                     rg_dev, geo, index_map = resident
                     ids = torch.as_tensor(index_map[idxs].astype(np.int64)).to(self.device)
-                    return gather_windows(rg_dev, ids, geo)
-                return self._upload(np.stack([dataset[int(i)] for i in idxs]))
+                    return gather_windows(rg_dev, ids, geo), B, sharded
+                return self._upload(np.stack([dataset[int(i)] for i in idxs])), B, sharded
 
             losses = []
             staged = stage(0) if starts else None
             for si in range(len(starts)):
-                seq = staged
+                args = staged
                 if si + 1 < len(starts):
                     staged = stage(si + 1)  # prefetch while this step runs
-                losses.append(self.train_step(seq))
+                losses.append(self._run(*args))
             epoch_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
             history.append(epoch_loss)
             log(f"Epoch: {epoch} Loss: {epoch_loss} Time: {time.time() - t0:.3f}")
         return history
+

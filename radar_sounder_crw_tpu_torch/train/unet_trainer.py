@@ -1,4 +1,5 @@
-"""Supervised UNet baseline trainer (SHARAD strips) on one device.
+"""Supervised UNet baseline trainer (SHARAD strips), data parallel over a
+mesh as the CRW trainer is (train/crw_trainer.py).
 
 Follows radar_sounder_crw_tpu/train/unet_trainer.py (the reference's
 scripts/test/test_unet.py): unfold the radargram into full-height strips,
@@ -10,11 +11,16 @@ loss is the per-item mean over H and W, weighted. The shuffle is keyed by
 (seed, epoch index); a partial last batch is a smaller batch (exact
 BatchNorm statistics). With `device_resident` the strips and their integer
 labels are uploaded once and each step rebuilds its one-hot on the device,
-which equals the host batch exactly when the labels are one-hot.
+which equals the host batch exactly when the labels are one-hot. On a
+mesh of several ranks a batch the mesh divides runs sharded (BatchNorm
+statistics over the ranks, gradients and loss summed), a partial one whole
+on every rank; `predict` pads the strips to the mesh, splits them and
+gathers the maps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable
@@ -23,8 +29,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.resnet import cross_rank_statistics
 from ..models.unet import create_unet
-from ..utils.device import parity_mode, resolve_device
+from ..parallel.mesh import (
+    all_gather,
+    all_reduce_grads,
+    default_mesh,
+    pad_to_multiple,
+    shard_batch,
+)
+from ..utils.device import parity_mode
 
 
 @dataclasses.dataclass
@@ -70,14 +84,16 @@ def _exact_onehot(y: np.ndarray, n_classes: int) -> bool:
 
 
 class UNetTrainer:
-    """Owns the UNet, Adam and the epoch loop on one device (default cuda;
-    raises without it, CPU runs pass device='cpu'). Inputs are NHWC numpy
-    strips (S, H, W, 1) with one-hot labels (S, H, W, M), as unfold_strips
-    gives them."""
+    """Owns the UNet, Adam and the epoch loop on this rank's device of
+    `mesh` (without one: the process group's when initialised, else one
+    device, `device`, default cuda; raises without it, CPU runs pass
+    device='cpu'). Inputs are NHWC numpy strips (S, H, W, 1) with one-hot
+    labels (S, H, W, M), as unfold_strips gives them."""
 
-    def __init__(self, config: UNetTrainConfig, device=None):
+    def __init__(self, config: UNetTrainConfig, device=None, mesh=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = default_mesh(device) if mesh is None else mesh
+        self.device = self.mesh.device
         parity_mode()
         self.model = None
         self.optimizer = None
@@ -103,27 +119,48 @@ class UNetTrainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
 
-    def loss(self, logits: torch.Tensor, onehot: torch.Tensor, weights: torch.Tensor):
-        """logits (B, M, H, W), onehot (B, H, W, M), weights (B,) -> scalar."""
+    def loss(self, logits: torch.Tensor, onehot: torch.Tensor, weights: torch.Tensor,
+             total=None):
+        """logits (B, M, H, W), onehot (B, H, W, M), weights (B,) -> scalar:
+        the weighted mean of the per-item losses, divided by `total` in place
+        of the weights' sum when given (a shard's share of a batch)."""
         logits = logits.permute(0, 2, 3, 1)
         if self.config.quirk_double_softmax:
             logp = F.log_softmax(F.softmax(logits, dim=-1), dim=-1)
         else:
             logp = F.log_softmax(logits, dim=-1)
         per_item = -(onehot * logp).sum(dim=-1).mean(dim=(1, 2))
-        return (per_item * weights).sum() / weights.sum()
+        return (per_item * weights).sum() / (weights.sum() if total is None else total)
 
     def train_step(self, x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
-        """One Adam step on device tensors x (B, 1, H, W), onehot (B, H, W, M);
-        the loss (detached)."""
+        """One Adam step on the batch x (B, 1, H, W), onehot (B, H, W, M),
+        device tensors; the whole batch's loss (detached)."""
+        B = x.shape[0]
+        sharded = self.mesh.shards(B)
+        if sharded:
+            x, onehot = shard_batch(x, self.mesh), shard_batch(onehot, self.mesh)
+        return self._run(x, onehot, B, sharded)
+
+    def _run(self, x, onehot, batch_size: int, sharded: bool) -> torch.Tensor:
+        """The step on this rank's rows of a batch of `batch_size`: sharded,
+        the loss is the rows' share of the batch's and BatchNorm, gradients
+        and loss are reduced over the ranks."""
         self.model.train()
         weights = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-        loss = self.loss(self.model(x), onehot, weights)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        mesh = self.mesh if sharded else None
+        stats = contextlib.nullcontext() if mesh is None else cross_rank_statistics(
+            self.model, mesh)
+        with stats:
+            loss = self.loss(self.model(x), onehot, weights,
+                             float(batch_size) if sharded else None)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce_grads(self.model.parameters(), mesh, loss)
         self.optimizer.step()
         self.step += 1
-        return loss.detach()
+        return loss
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
@@ -150,7 +187,11 @@ class UNetTrainer:
         return x_dev, labels_dev
 
     def fit(self, x, y, log: Callable[[str], None] = print) -> list[float]:
+        """Epoch loop; on a mesh each rank takes its rows of every batch
+        (rank 0 alone logs)."""
         cfg = self.config
+        if self.mesh.rank != 0:
+            log = lambda _msg: None  # noqa: E731 (rank 0 alone logs)
         if self.model is None:
             self.init_state(x.shape)
         steps_per_epoch = max(1, -(-len(x) // cfg.batch_size))
@@ -166,6 +207,9 @@ class UNetTrainer:
             losses = []
             for s in range(0, len(order), cfg.batch_size):
                 idx = order[s: s + cfg.batch_size]
+                B, sharded = len(idx), self.mesh.shards(len(idx))
+                if sharded:
+                    idx = shard_batch(idx, self.mesh)
                 if resident is not None:
                     ids = torch.as_tensor(idx).to(self.device)
                     bx = resident[0][ids]
@@ -173,7 +217,7 @@ class UNetTrainer:
                 else:
                     bx = self._to_device(x[idx]).permute(0, 3, 1, 2)
                     by = self._to_device(y[idx])
-                losses.append(self.train_step(bx, by))
+                losses.append(self._run(bx, by, B, sharded))
             epoch_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
             history.append(epoch_loss)
             log(f"Epoch: {epoch + 1} Loss: {epoch_loss} Time: {time.time() - t0:.3f}")
@@ -181,7 +225,15 @@ class UNetTrainer:
 
     @torch.no_grad()
     def predict(self, x) -> np.ndarray:
-        """Eval-mode argmax class map (B, H, W) int32 of NHWC strips."""
+        """Eval-mode argmax class map (B, H, W) int32 of NHWC strips. On a
+        mesh the strips are padded to a multiple of its size (the last one
+        repeated), each rank maps its share and every rank returns all B."""
         self.model.eval()
-        logits = self.model(self._to_device(x).permute(0, 3, 1, 2))
-        return logits.argmax(dim=1).to(torch.int32).cpu().numpy()
+        x, real = pad_to_multiple(np.asarray(x, np.float32), self.mesh.size)
+        if self.mesh.group is not None:
+            x = shard_batch(x, self.mesh)
+        pred = self.model(self._to_device(x).permute(0, 3, 1, 2)).argmax(dim=1).to(torch.int32)
+        if self.mesh.group is not None:
+            pred = all_gather(pred, self.mesh)
+        return pred[:real].cpu().numpy()
+

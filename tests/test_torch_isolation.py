@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax():
                  "cli.test", "cli.test_mc1", "cli.test_mc3", "cli.test_sharad", "cli.annotate",
                  "cli.heatmap", "cli.show_grid", "cli.train", "cli.test_unet", "ops.crw",
                  "models.unet", "utils.profiling", "train", "train.crw_trainer",
-                 "train.checkpoint", "train.unet_trainer"):
+                 "train.checkpoint", "train.unet_trainer", "train.tune", "parallel",
+                 "parallel.mesh"):
         assert port + name in mods, name
     code = (
         "import sys\n"
