@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Phases, one line each, any failure exits non-zero:
-  1. build the three CUDA propagation kernels, csrc/prop_step.cu,
-     csrc/prop_seq.cu and csrc/prop_all.cu, all on the tile core
-     csrc/prop_tile.cuh, the last two on the all-frames kernels of
-     csrc/prop_frames.cuh (sm_90a, one nvcc each, started together);
+  1. build every CUDA source the port registers (ops/cuda_build.py): the
+     three propagation kernels, csrc/prop_step.cu, csrc/prop_seq.cu and
+     csrc/prop_all.cu, all on the tile core csrc/prop_tile.cuh, the last
+     two on the all-frames kernels of csrc/prop_frames.cuh, and the
+     train-mode BatchNorm kernels of csrc/bn_train.cu (sm_90a, one nvcc
+     each, started together);
   2. hold prop_step against its plain PyTorch twin at MC3 and SHARAD step
      shapes, the MC3 prefixes of frames t = 1, 2, 37 and 100, a tie-heavy
      case (bit for bit), knn above the candidate count, an odd channel
@@ -89,18 +91,37 @@ Phases, one line each, any failure exits non-zero:
      the running means within rtol 1e-3; then the CNN's 12 steps, each loss
      within relative 5e-6 for the first 4 and 2e-4 throughout (the CPU
      tests' tolerances; the ResNet's later steps are printed, not held);
+ 12b. bn_kernels: the four BatchNorm kernels of csrc/bn_train.cu (stats,
+     apply, backward reduce, dx; models/fused_bn.py's `fused`) at the 13
+     BatchNorm shapes of the bench configuration's step (18,080 patches),
+     float32 and bfloat16, each against its plain twin (sums bit for bit on
+     2**-5-grid inputs, within relative 1e-5 of the sums of magnitudes on
+     real ones; mean and var bit for bit; y and dx within 2 ulp given the
+     same sums), then each one's device time beside its twin's, one
+     PyTorch call of the same function and its bound, and
+     F.batch_norm(training=True) forward and backward;
  13. crw_step: CRW train steps at bench.py's configuration (B = 8, T = 20,
      16x16, overlap (8, 0), synthetic SHARAD 912 x 4096 seed 13, N = 113),
-     the batch gathered once on the card, float32 and bfloat16: median ms a
-     step (CUDA events), steps/s, peak memory, the matmul and convolution
-     operations against the peak of their dtype, the device's idle share
-     and largest kernels under torch.profiler over three steps, and the
-     step again with cuDNN choosing its algorithms by timing them
-     (cudnn.benchmark; a measurement, not the port's default);
+     the batch gathered once on the card, float32 and bfloat16, with
+     fused_bn None, 'fused' and 'lean', each with steps_per_dispatch 1 and
+     8 (float32 at 8 with None alone): median ms a step (CUDA events),
+     steps/s, peak memory, the device's idle share and largest kernels
+     under torch.profiler (over three bfloat16 steps, one float32 step or
+     one replay of eight), the BatchNorm kernels' launches (13 a step for
+     each of `fused`'s, 13 of the statistics for `lean`) and the graph
+     replays; for fused_bn None at k = 1 also the matmul and convolution
+     operations against the peak of their dtype and the step with cuDNN
+     choosing its algorithms by timing them (cudnn.benchmark; a
+     measurement, not the port's default);
+ 13b. graph_vs_eager: steps_per_dispatch 8 at the bench configuration in
+     bfloat16, cuDNN deterministic, flax's BatchNorm and `fused`: two
+     chunks (eager, then one graph replay) against 16 eager steps, bit for
+     bit (losses, parameters and buffers, Adam's state);
  14-15. train_cli: `python -m radar_sounder_crw_tpu_torch.cli.train
      --dataset 3 --model 1 --no_plots` at its defaults (synthetic SHARAD
-     912 x 8192, 2 epochs of 62 steps), then with --bf16: exit 0, two epoch
-     lines, `Finished training.`, the wall time;
+     912 x 8192, 2 epochs of 62 steps), then with --bf16, then with --bf16
+     --steps_per_dispatch 8: exit 0, two epoch lines, `Finished
+     training.`, the wall time;
  16. trained_inference: each trained `.pt` loaded strict and run through
      seed->map on SHARAD window 0 (T = 100, N = 113) on the default route
      (99 prop_step launches) and the plain route: >= 99.5 % equal maps,
@@ -125,12 +146,15 @@ Phases, one line each, any failure exits non-zero:
      deterministic: losses and parameters exactly equal, ms a step of both;
      the Miguel survey's forward pass with change detection through
      `propagate_survey(mesh=...)` and without: maps and change indices
-     exactly equal, one prop_seq launch each. Then the same with two ranks
-     on the one card over gloo carrying CUDA tensors (NCCL refuses two
-     ranks on one device), held as tests/test_torch_parallel.py holds two
-     ranks: the first step's loss within rtol 1e-5 and its running
-     statistics within rtol 1e-5 / atol 1e-6, the ranks' states equal, the
-     survey's maps exactly equal; where gloo cannot run, the reason;
+     exactly equal, one prop_seq launch each; steps_per_dispatch 2 on the
+     mesh (bfloat16, fused_bn='fused': the BatchNorm sums' and gradients'
+     all-reduces captured in the graph) bit-equal to eager steps. Then the
+     same with two ranks on the one card over gloo carrying CUDA tensors
+     (NCCL refuses two ranks on one device), held as
+     tests/test_torch_parallel.py holds two ranks: the first step's loss
+     within rtol 1e-5 and its running statistics within rtol 1e-5 / atol
+     1e-6, the ranks' states equal, the survey's maps exactly equal, and
+     steps_per_dispatch 2 refused (gloo cannot be captured);
  21. a JSON line describing each kernel (with the training phases' numbers
      under `train_times`, the data-parallel runs under `data_parallel`),
      the card's name and power limit, and the final {"ok": true, ...} line.
@@ -139,13 +163,18 @@ Launch counts are set to 0 just before each path is driven and read just
 after it: the default main path (phases 3 and 7), the cuda_resident one,
 the auto_limits call, the two entry points of phases 10 and 11, each
 trained encoder's seed->map in phase 16 and each survey call of phase 20
-(one prop_seq launch a rank and call). The training phases launch none of
-the port's kernels: their work runs in cuDNN and PyTorch's own kernels.
+(one prop_seq launch a rank and call), and for the BatchNorm kernels each
+timed run of phase 13 (the main path: 20 bfloat16 steps with
+fused_bn='fused'). A CUDA graph's replay runs its kernels without calling
+their wrappers: phase 13 counts the replays beside the launches. The other
+training phases launch none of the port's kernels: their work runs in
+cuDNN and PyTorch's own kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -170,10 +199,11 @@ def phase(name, msg):
 
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda, labelprop_cuda
 
-    for name in labelprop_cuda.launches:
-        labelprop_cuda.launches[name] = 0
+    for counts in (labelprop_cuda.launches, bn_cuda.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -266,13 +296,15 @@ def seq_inputs(B, T, N, C, M, seed, ties=False):
     return torch.as_tensor(emb, device="cuda"), torch.as_tensor(seeds, device="cuda")
 
 
-def device_busy(fn):
-    """Device time by kernel name over one call of fn under torch.profiler:
-    the device's busy share of the call's wall time and the largest kernels
-    (ms). A trace without device time reports a busy share of 0."""
+def device_busy(fn, warm=True):
+    """Device time by kernel name over one call of fn under torch.profiler
+    (after one call outside it, unless fn is warm already): the device's
+    busy share of the call's wall time and the largest kernels (ms). A trace
+    without device time reports a busy share of 0."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -791,20 +823,214 @@ def train_vs_cpu_phase():
     return result
 
 
+BN_EPS = 1e-5
+BENCH = dict(B=8, T=20, patch=(16, 16), overlap=(8, 0))  # bench.py:139
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_backward_reduce", "bn_dx")
+# bytes a kernel moves per activation element of `size` bytes (each input
+# read once, each output written once): stats reads x; apply reads x,
+# writes y; the backward reduce reads g and x; dx reads g and x, writes dx
+BN_BYTES = {"bn_stats": 1, "bn_apply": 2, "bn_backward_reduce": 2, "bn_dx": 3}
+BN_OPS = {"bn_stats": 3, "bn_apply": 4, "bn_backward_reduce": 5, "bn_dx": 5}  # float32 ops
+K_DISPATCH = 8  # bench.py:227's K
+
+
+def bench_batch():
+    """The bench configuration's batch gathered on the card: (seq (B, T, N,
+    16, 16), N)."""
+    from radar_sounder_crw_tpu_torch.data import RGWindows, gather_windows, synthetic_radargram
+
+    rg, _ = synthetic_radargram(H=912, W=4096, nclasses=5, seed=13)
+    ds = RGWindows(rg, length=BENCH["T"], dim=BENCH["patch"], overlap=BENCH["overlap"])
+    seq = gather_windows(torch.as_tensor(rg, device="cuda"), np.arange(BENCH["B"]),
+                         ds.geo).contiguous()
+    return seq, seq.shape[2]
+
+
+def bench_trainer(dtype, fused_bn=None, k=1):
+    from radar_sounder_crw_tpu_torch.train import CRWTrainConfig, CRWTrainer
+
+    trainer = CRWTrainer(CRWTrainConfig(
+        model=1, patch_size=BENCH["patch"], seq_length=BENCH["T"], overlap=BENCH["overlap"],
+        batch_size=BENCH["B"], lr=1e-3, tau=0.01, dtype=dtype, fused_bn=fused_bn,
+        steps_per_dispatch=k), device="cuda")
+    return trainer
+
+
+def bn_shapes(patches):
+    """(N, C, H, W) of the 13 BatchNorm inputs of the ResNet-10 encoder on
+    `patches` 16x16 patches, read by forward hooks."""
+    from radar_sounder_crw_tpu_torch.models import BatchNorm, create_model
+
+    model = create_model(1, False, device="cuda")
+    shapes = []
+    hooks = [m.register_forward_hook(lambda m, inp, out: shapes.append(tuple(inp[0].shape)))
+             for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(torch.zeros((2, 1, *BENCH["patch"]), device="cuda"))
+    for h in hooks:
+        h.remove()
+    return [(patches, *s[1:]) for s in shapes]
+
+
+def ulps(got, want):
+    """max |got - want| in units in the last place of `want` in its dtype."""
+    bits = 23 if want.dtype == torch.float32 else 7
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), (e - 1 - bits).float())
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def bn_kernels_phase(smi, patches):
+    """Phase 12b: the four BatchNorm kernels of csrc/bn_train.cu at the 13
+    BatchNorm shapes of the bench configuration's step, float32 and
+    bfloat16: each against its plain twin on the same inputs (sums bit for
+    bit on 2**-5-grid inputs cut to N*H*W <= 16384, within relative 1e-5 of
+    the sums of magnitudes on real ones; mean and var bit for bit; y and dx
+    within 2 ulp of their dtype given the same sums), then device times
+    (CUDA events) of each kernel, its twin and one PyTorch call of the same
+    function (torch.var_mean; F.batch_norm with the batch's statistics;
+    native_batch_norm_backward for the parameter gradients, and for the
+    input gradient, which it computes with its reductions), and
+    F.batch_norm(training=True) forward and backward, against the bound."""
+    import torch.nn.functional as F
+
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda
+
+    shapes = bn_shapes(patches)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows, totals, errs = [], {}, {k: 0.0 for k in BN_KERNELS}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        size = torch.finfo(dtype).bits // 8
+        tot = totals.setdefault(tag, {})
+        for shape in shapes:
+            N, C, H, W = shape
+            x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+            g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            scale = torch.linspace(0.5, 1.5, C, device="cuda")
+            bias = torch.linspace(-0.3, 0.3, C, device="cuda")
+            # exact sums on the grid
+            ne = max(1, min(N, 16384 // (H * W)))
+            xe = (torch.randint(-32, 33, (ne, C, H, W), device="cuda", generator=gen) / 32
+                  ).to(dtype)
+            exact = torch.equal(bn_cuda.stats(xe), bn_cuda.stats_reference(xe))
+            # real inputs
+            xf, gf = x.float(), g.float()
+            sums, sums_t = bn_cuda.stats(x), bn_cuda.stats_reference(x)
+            mags = torch.cat([xf.abs().sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                              sums_t[-1:]])
+            y, mean, var = bn_cuda.apply(x, sums, scale, bias, BN_EPS)
+            y_t, mean_t, var_t = bn_cuda.apply_reference(x, sums, scale, bias, BN_EPS)
+            gsums = bn_cuda.backward_reduce(g, x, sums, BN_EPS)
+            gsums_t = bn_cuda.backward_reduce_reference(g, x, sums, BN_EPS)
+            _, _, inv = bn_cuda._moments_reference(sums, C, BN_EPS)
+            xhat = (xf - mean_t.view(1, C, 1, 1)) * inv
+            gmags = torch.cat([gf.abs().sum((0, 2, 3)), (gf * xhat).abs().sum((0, 2, 3))])
+            dx = bn_cuda.dx(g, x, sums, gsums, scale, BN_EPS)
+            dx_t = bn_cuda.dx_reference(g, x, sums, gsums, scale, BN_EPS)
+            check = {
+                "sums_rel": ((sums - sums_t).abs() / mags).max().item(),
+                "gsums_rel": ((gsums - gsums_t).abs() / gmags).max().item(),
+                "y_ulps": ulps(y, y_t), "dx_ulps": ulps(dx, dx_t),
+                "mean_var_equal": torch.equal(mean, mean_t) and torch.equal(var, var_t),
+                "grid_sums_equal": exact,
+            }
+            for k, d in (("bn_stats", sums - sums_t), ("bn_apply", y.float() - y_t.float()),
+                         ("bn_backward_reduce", gsums - gsums_t),
+                         ("bn_dx", dx.float() - dx_t.float())):
+                errs[k] = max(errs[k], d.abs().max().item())
+            if not (exact and check["mean_var_equal"] and check["sums_rel"] <= 1e-5
+                    and check["gsums_rel"] <= 1e-5 and check["y_ulps"] <= 2
+                    and check["dx_ulps"] <= 2):
+                raise SystemExit(f"a BatchNorm kernel disagrees with its twin at {shape} "
+                                 f"{tag}: {check}")
+            # times: the kernels, their twins, one PyTorch call of the same function
+            mean_, invstd = mean.clone(), torch.rsqrt(var + BN_EPS)
+            calls = {  # name: (kernel, plain twin, library call or None)
+                "bn_stats": (lambda: bn_cuda.stats(x), lambda: bn_cuda.stats_reference(x),
+                             lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0)),
+                "bn_apply": (lambda: bn_cuda.apply(x, sums, scale, bias, BN_EPS),
+                             lambda: bn_cuda.apply_reference(x, sums, scale, bias, BN_EPS),
+                             lambda: F.batch_norm(x, mean, var, scale, bias, False, 0.0, BN_EPS)),
+                "bn_backward_reduce": (
+                    lambda: bn_cuda.backward_reduce(g, x, sums, BN_EPS),
+                    lambda: bn_cuda.backward_reduce_reference(g, x, sums, BN_EPS),
+                    lambda: torch.ops.aten.native_batch_norm_backward(
+                        g, x, scale, None, None, mean_, invstd, True, BN_EPS,
+                        [False, True, True])),
+                "bn_dx": (lambda: bn_cuda.dx(g, x, sums, gsums, scale, BN_EPS),
+                          lambda: bn_cuda.dx_reference(g, x, sums, gsums, scale, BN_EPS),
+                          lambda: torch.ops.aten.native_batch_norm_backward(
+                              g, x, scale, None, None, mean_, invstd, True, BN_EPS,
+                              [True, False, False])),
+            }
+            ms = {k: cuda_ms(c[0], 10, 2) for k, c in calls.items()}
+            plain = {k: cuda_ms(c[1], 5, 1) for k, c in calls.items()}
+            library = {k: cuda_ms(c[2], 10, 2) for k, c in calls.items()}
+            rm, rv = torch.zeros(C, device="cuda"), torch.ones(C, device="cuda")
+            xr = x.detach().requires_grad_(True)
+            w, b = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+            lib_fwd = cuda_ms(lambda: F.batch_norm(x, rm, rv, scale, bias, True, 0.1, BN_EPS),
+                              10, 2)
+            lib_both = cuda_ms(lambda: torch.autograd.grad(
+                F.batch_norm(xr, rm, rv, w, b, True, 0.1, BN_EPS), (xr, w, b), g), 10, 2)
+            elems = N * C * H * W
+            bound = {k: max(BN_BYTES[k] * size * elems / PEAK_BYTES,
+                            BN_OPS[k] * elems / PEAK_F32_FLOPS) * 1e3 for k in BN_KERNELS}
+            row = {"shape": list(shape), "dtype": tag, **check, "ms": ms, "bound_ms": bound,
+                   "plain_ms": plain, "library_ms": library,
+                   "fwd_ms": ms["bn_stats"] + ms["bn_apply"],
+                   "bwd_ms": ms["bn_backward_reduce"] + ms["bn_dx"],
+                   "plain_fwd_ms": plain["bn_stats"] + plain["bn_apply"],
+                   "plain_bwd_ms": plain["bn_backward_reduce"] + plain["bn_dx"],
+                   "batch_norm_fwd_ms": lib_fwd, "batch_norm_bwd_ms": lib_both - lib_fwd}
+            rows.append(row)
+            for k in BN_KERNELS:
+                for key, v in (("ms", ms), ("bound_ms", bound), ("plain_ms", plain),
+                               ("library_ms", library)):
+                    tot[f"{k}_{key}"] = tot.get(f"{k}_{key}", 0.0) + v[k]
+            for k in ("fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "batch_norm_fwd_ms",
+                      "batch_norm_bwd_ms"):
+                tot[k] = tot.get(k, 0.0) + row[k]
+            del x, g, xf, gf, xhat, xr, y, y_t, dx, dx_t, calls
+        tot["bound_ms"] = sum(tot[f"{k}_bound_ms"] for k in BN_KERNELS)
+        phase("bn_kernels", f"{tag}, 13 shapes of {patches} patches: kernels fwd "
+              f"{tot['fwd_ms']:.3f} + bwd {tot['bwd_ms']:.3f} ms a step (stats "
+              f"{tot['bn_stats_ms']:.3f}, apply {tot['bn_apply_ms']:.3f}, reduce "
+              f"{tot['bn_backward_reduce_ms']:.3f}, dx {tot['bn_dx_ms']:.3f}); bound "
+              f"{tot['bound_ms']:.3f}; plain twin {tot['plain_fwd_ms']:.3f} + "
+              f"{tot['plain_bwd_ms']:.3f}; F.batch_norm {tot['batch_norm_fwd_ms']:.3f} + "
+              f"{tot['batch_norm_bwd_ms']:.3f}; one PyTorch call a kernel "
+              + " ".join(f"{k[3:]}={tot[k + '_library_ms']:.3f}" for k in BN_KERNELS))
+        torch.cuda.empty_cache()
+    for r in rows:
+        phase("bn_kernels", f"{r['dtype']} {tuple(r['shape'])}: kernels "
+              + " ".join(f"{k[3:]}={r['ms'][k]:.4f}" for k in BN_KERNELS)
+              + f" (bound {sum(r['bound_ms'].values()):.4f}); twin {r['plain_fwd_ms']:.3f}+"
+              f"{r['plain_bwd_ms']:.3f}; F.batch_norm {r['batch_norm_fwd_ms']:.4f}+"
+              f"{r['batch_norm_bwd_ms']:.4f}; sums rel {r['sums_rel']:.1e}/{r['gsums_rel']:.1e}, "
+              f"ulps y {r['y_ulps']:.0f} dx {r['dx_ulps']:.0f}")
+    phase("times", f"{smi} | " + " ".join(
+        f"bn_{tag}_{k}={v:.4f}" for tag, t in totals.items() for k, v in t.items()))
+    OUT.mkdir(exist_ok=True)
+    with open(OUT / "bn_kernels.json", "w") as f:
+        json.dump({"card": smi, "rows": rows, "totals": totals}, f)
+    return {"rows": rows, "totals": totals, "max_abs_err": errs}
+
+
 def crw_step_phase(smi):
     """Phase 13: CRW train steps at bench.py's configuration (B 8, T 20,
     16x16 patches, overlap (8, 0), synthetic SHARAD 912 x 4096 seed 13,
     N = 113; ResNet-10, lr 1e-3, tau 0.01), the batch gathered once on the
-    card, float32 and bfloat16."""
-    from radar_sounder_crw_tpu_torch.data import RGWindows, gather_windows, synthetic_radargram
+    card, float32 and bfloat16, with each BatchNorm (fused_bn None, 'fused',
+    'lean') and with steps_per_dispatch 1 and 8 (one CUDA graph replay of
+    eight steps; float32 at k = 8 with flax's BatchNorm alone)."""
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda
     from radar_sounder_crw_tpu_torch.ops.crw import crw_loss
-    from radar_sounder_crw_tpu_torch.train import CRWTrainConfig, CRWTrainer
+    from radar_sounder_crw_tpu_torch.train import step_graph
 
-    B, T, patch, overlap = 8, 20, (16, 16), (8, 0)
-    rg, _ = synthetic_radargram(H=912, W=4096, nclasses=5, seed=13)
-    ds = RGWindows(rg, length=T, dim=patch, overlap=overlap)
-    seq = gather_windows(torch.as_tensor(rg, device="cuda"), np.arange(B), ds.geo).contiguous()
-    N = seq.shape[2]
+    seq, N = bench_batch()
+    B, T = BENCH["B"], BENCH["T"]
+    seqs = seq.expand(K_DISPATCH, *seq.shape)
     emb = torch.randn((B, T, N, 128), device="cuda", requires_grad=True)
 
     def loss_step():
@@ -812,55 +1038,131 @@ def crw_step_phase(smi):
         per.mean().backward()
 
     loss_flops = step_flops(loss_step)
-    times = {}
-    for tag, dtype, peak in (("f32", torch.float32, PEAK_F32_FLOPS),
-                             ("bf16", torch.bfloat16, PEAK_BF16_FLOPS)):
-        trainer = CRWTrainer(CRWTrainConfig(model=1, patch_size=patch, seq_length=T,
-                                            overlap=overlap, batch_size=B, lr=1e-3, tau=0.01,
-                                            dtype=dtype), device="cuda")
+    times, bn_launches = {}, {}
+    configs = [(dtag, dtype, peak, fb, k)
+               for dtag, dtype, peak in (("f32", torch.float32, PEAK_F32_FLOPS),
+                                         ("bf16", torch.bfloat16, PEAK_BF16_FLOPS))
+               for fb in (None, "fused", "lean") for k in (1, K_DISPATCH)
+               if not (dtag == "f32" and k > 1 and fb is not None)]
+    for dtag, dtype, peak, fused_bn, k in configs:
+        tag = f"{dtag}" + (f"_{fused_bn}" if fused_bn else "") + (f"_k{k}" if k > 1 else "")
+        trainer = bench_trainer(dtype, fused_bn, k)
         trainer.init_state(tuple(seq.shape[1:]))
-        losses = [float(trainer.train_step(seq)) for _ in range(3)]  # warm-up
-        flops = step_flops(lambda: trainer.train_step(seq))
+        if k == 1:  # float32: 10 timed steps with flax's BatchNorm, 5 with the others
+            run, per_call = (lambda: trainer.train_step(seq)), 1
+            iters = 20 if dtag == "bf16" else 10 if fused_bn is None else 5
+            losses = [float(run()) for _ in range(3)]  # warm-up
+        else:
+            run, per_call = (lambda: trainer.train_chunk(seqs)), k
+            iters = 1 if dtag == "f32" else 3
+            losses = [float(v) for _ in range(2) for v in run()]  # eager + capture, a replay
+        replays = step_graph.replays
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        ms, wall = step_times(lambda: trainer.train_step(seq), 20)
+        ms, wall = step_times(run, iters)
+        launched = dict(bn_cuda.launches)
+        replayed = step_graph.replays - replays
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        bound_ms = ((flops - loss_flops) / peak + loss_flops / PEAK_F32_FLOPS) * 1e3
-        busy = device_busy(lambda: [trainer.train_step(seq) for _ in range(3)])
-        bench_ms, bench_wall, bench_gb = cudnn_benchmark_times(lambda: trainer.train_step(seq), 20)
-        loss = float(trainer.train_step(seq))
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        profiled, out = (3 if k == 1 and dtag == "bf16" else 1), []  # calls under the profiler
+        busy = device_busy(lambda: [out.append(run()) for _ in range(profiled)],
+                           warm=profiled == 3)
+        loss = float(out[-1][-1] if k > 1 else out[-1])
         if not (np.isfinite(losses).all() and np.isfinite(loss)):
             raise SystemExit(f"CRW training at the bench configuration gave a non-finite loss "
                              f"({tag})")
-        times.update({
-            f"crw_step_{tag}_ms": ms,
-            f"crw_step_{tag}_wall_ms": wall,
-            f"crw_steps_per_s_{tag}": 1e3 / wall,
-            f"crw_step_{tag}_peak_gb": peak_gb,
-            f"crw_step_{tag}_gflop": flops / 1e9,
-            f"crw_step_{tag}_bound_ms": bound_ms,
-            f"crw_step_{tag}_bound_share": bound_ms / ms,
-            f"crw_step_{tag}_device_idle_share": busy["device_idle_share"],
-            f"crw_step_{tag}_cudnn_benchmark_ms": bench_ms,
-            f"crw_step_{tag}_cudnn_benchmark_wall_ms": bench_wall,
-            f"crw_step_{tag}_cudnn_benchmark_peak_gb": bench_gb,
-        })
-        phase("crw_step", f"{tag} B={B} T={T} N={N}: {ms:.3f} ms a step (events, median of "
-              f"20), {wall:.3f} ms wall, {1e3 / wall:.2f} steps/s, peak {peak_gb:.2f} GB, "
-              f"{flops / 1e9:.1f} GFLOP (loss {loss_flops / 1e9:.2f}), bound {bound_ms:.3f} ms "
-              f"(share {bound_ms / ms:.3f}), idle {busy['device_idle_share']:.4f}; with "
-              f"cudnn.benchmark {bench_ms:.3f} ms ({bench_wall:.3f} wall, peak {bench_gb:.2f} "
-              f"GB); losses {losses[0]:.5f} -> {loss:.5f}")
-        del trainer
+        want = {"bn_stats": 0, "bn_apply": 0, "bn_backward_reduce": 0, "bn_dx": 0}
+        if k == 1 and fused_bn == "fused":
+            want = {name: 13 * iters for name in want}
+        elif k == 1 and fused_bn == "lean":
+            want["bn_stats"] = 13 * iters
+        if launched != want or replayed != (iters if k > 1 else 0):
+            raise SystemExit(f"crw_step {tag}: launches {launched} (expected {want}), graph "
+                             f"replays {replayed}")
+        if k == 1 and fused_bn:
+            bn_launches[f"{dtag}_{fused_bn}"] = launched
+        m = {"ms": ms / per_call, "wall_ms": wall / per_call, "steps_per_s": 1e3 * per_call / wall,
+             "peak_gb": peak_gb, "reserved_gb": reserved_gb,
+             "device_idle_share": busy["device_idle_share"]}
+        extra = ""
+        if k == 1 and fused_bn is None:  # the default step's operations and cuDNN search
+            flops = step_flops(run)
+            bound_ms = ((flops - loss_flops) / peak + loss_flops / PEAK_F32_FLOPS) * 1e3
+            bench_ms, bench_wall, bench_gb = cudnn_benchmark_times(run, 5)
+            m.update({"gflop": flops / 1e9, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                      "cudnn_benchmark_ms": bench_ms, "cudnn_benchmark_wall_ms": bench_wall,
+                      "cudnn_benchmark_peak_gb": bench_gb})
+            extra = (f", {flops / 1e9:.1f} GFLOP (loss {loss_flops / 1e9:.2f}), bound "
+                     f"{bound_ms:.3f} ms (share {bound_ms / ms:.3f}); with cudnn.benchmark "
+                     f"{bench_ms:.3f} ms ({bench_wall:.3f} wall, peak {bench_gb:.2f} GB)")
+        times.update({f"crw_step_{tag}_{key}": v for key, v in m.items()})
+        phase("crw_step", f"{tag} B={B} T={T} N={N}: {m['ms']:.3f} ms a step (events, median "
+              f"of {iters} calls of {per_call} steps), {m['wall_ms']:.3f} ms wall, "
+              f"{m['steps_per_s']:.2f} steps/s, peak {peak_gb:.2f} GB (reserved "
+              f"{reserved_gb:.2f}), idle {busy['device_idle_share']:.4f}, BatchNorm kernel "
+              f"launches {launched}, graph replays {replayed}{extra}; losses {losses[0]:.5f} "
+              f"-> {loss:.5f}")
+        del trainer, run
+        gc.collect()  # a trainer's graph holds the trainer in a cycle
         torch.cuda.empty_cache()
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
-    return times
+    times.update(graph_vs_eager(seq))
+    return times, bn_launches
+
+
+def graph_vs_eager(seq):
+    """Phase 13b: steps_per_dispatch = 8 at the bench configuration in
+    bfloat16 with cuDNN deterministic: two chunks (the first eager, the
+    second one graph replay) against sixteen eager steps of the same
+    configuration, bit for bit: losses, parameters and buffers, Adam's
+    state; flax's BatchNorm and the `fused` kernels."""
+    from radar_sounder_crw_tpu_torch.train import step_graph
+
+    seqs = seq.expand(K_DISPATCH, *seq.shape)
+    result = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused_bn in (None, "fused"):
+            graphed = bench_trainer(torch.bfloat16, fused_bn, K_DISPATCH)
+            eager = bench_trainer(torch.bfloat16, fused_bn, K_DISPATCH)
+            for tr in (graphed, eager):
+                tr.init_state(tuple(seq.shape[1:]))
+            eager.model.load_state_dict(graphed.model.state_dict(), strict=True)
+            replays = step_graph.replays
+            got = torch.cat([graphed.train_chunk(seqs), graphed.train_chunk(seqs)])
+            want = torch.stack([eager.train_step(seq) for _ in range(2 * K_DISPATCH)])
+            torch.cuda.synchronize()
+            equal = {
+                "losses": torch.equal(got, want),
+                "state": all(torch.equal(v, eager.model.state_dict()[n])
+                             for n, v in graphed.model.state_dict().items()),
+                "adam": all(torch.equal(v, eager.optimizer.state_dict()["state"][i][n])
+                            for i, st in graphed.optimizer.state_dict()["state"].items()
+                            for n, v in st.items()),
+                "one_replay": step_graph.replays - replays == 1,
+            }
+            tag = fused_bn or "flax"
+            phase("graph_vs_eager", f"bf16 {tag}: two chunks of {K_DISPATCH} (eager, then one "
+                  f"replay) vs {2 * K_DISPATCH} eager steps, cuDNN deterministic: {equal}; "
+                  f"losses {got[0].item():.5f} -> {got[-1].item():.5f}")
+            if not all(equal.values()):
+                raise SystemExit(f"the CUDA graph of {K_DISPATCH} steps differs from eager "
+                                 f"steps ({tag})")
+            result[f"graph_vs_eager_bf16_{tag}"] = equal
+            del graphed, eager
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return result
 
 
 def train_cli_phase():
     """Phases 14-15: the user's training command at its defaults, float32
     and --bf16, as processes from the shell."""
     walls, pts = {}, {}
-    for tag, extra in (("f32", []), ("bf16", ["--bf16"])):
+    for tag, extra in (("f32", []), ("bf16", ["--bf16"]),
+                       ("bf16_k8", ["--bf16", "--steps_per_dispatch", str(K_DISPATCH)])):
         out = OUT / f"train_{tag}"
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -879,9 +1181,8 @@ def train_cli_phase():
                              f"{proc.stderr[-4000:]}")
         walls[f"{tag}_epoch_s"] = [float(ln.rsplit(" ", 1)[1]) for ln in epochs]
         pts[tag] = out / "models" / "sharad16_3.pt"
-    return {"cli_train_f32_s": walls["f32"], "cli_train_bf16_s": walls["bf16"],
-            "cli_train_f32_epoch_s": walls["f32_epoch_s"],
-            "cli_train_bf16_epoch_s": walls["bf16_epoch_s"]}, pts
+    return {f"cli_train_{tag}_{key}": walls[f"{tag}{suffix}"] for tag in pts
+            for key, suffix in (("s", ""), ("epoch_s", "_epoch_s"))}, pts
 
 
 def trained_inference_phase(pts):
@@ -1075,8 +1376,12 @@ def dp_rank_main(backend: str) -> int:
     """One rank of the data_parallel phase, started by torch.distributed.run
     (`chip_smoke.py --data-parallel-rank nccl|gloo`): CRW steps at
     bench.py's configuration and the Miguel survey on this rank's mesh and
-    on its device alone; rank 0 prints one `DP_RESULT {json}` line, every
-    rank a `DP_DIGEST` line of its trained state."""
+    on its device alone, and steps_per_dispatch = 2 on the mesh (a graph
+    against eager steps over NCCL, refused over gloo); rank 0 prints one
+    `DP_RESULT {json}` line, every rank a `DP_DIGEST` line of its trained
+    state."""
+    import dataclasses
+
     import torch.distributed as dist
 
     from radar_sounder_crw_tpu_torch.data import RGWindows, gather_windows, synthetic_radargram
@@ -1135,6 +1440,36 @@ def dp_rank_main(backend: str) -> int:
         del trainers, states
         torch.cuda.empty_cache()
 
+        # steps_per_dispatch = 2 on the mesh, bfloat16, fused_bn='fused': over
+        # NCCL the graph captures the BatchNorm sums' and the gradients'
+        # all-reduces and equals eager steps bit for bit; gloo's refuse capture
+        cfg2 = dataclasses.replace(cfg, dtype=torch.bfloat16, fused_bn="fused",
+                                   steps_per_dispatch=2)
+        pair = [CRWTrainer(cfg2, mesh=mesh) for _ in range(2)]
+        for tr in pair:
+            tr.init_state(tuple(seq.shape[1:]))
+        pair[1].model.load_state_dict(pair[0].model.state_dict(), strict=True)
+        seqs = seq.expand(2, *seq.shape)
+        torch.backends.cudnn.deterministic = True
+        try:
+            if backend == "nccl":
+                got = torch.cat([pair[0].train_chunk(seqs) for _ in range(2)])
+                want = torch.stack([pair[1].train_step(seq) for _ in range(4)])
+                out["graph_losses_equal"] = torch.equal(got, want)
+                out["graph_state_equal"] = all(
+                    torch.equal(v, pair[1].model.state_dict()[k])
+                    for k, v in pair[0].model.state_dict().items())
+            else:
+                try:
+                    pair[0].train_chunk(seqs)
+                    out["graph_refused"] = None
+                except ValueError as e:
+                    out["graph_refused"] = str(e)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del pair
+        torch.cuda.empty_cache()
+
         # the Miguel survey's forward pass with change detection
         ds, ids, refs, _, nclasses = miguel_survey()
         pipe = PropagationPipeline(
@@ -1180,12 +1515,6 @@ def data_parallel_phase(smi):
         lines = proc.stdout.splitlines()
         res = [json.loads(ln.split(" ", 1)[1]) for ln in lines if ln.startswith("DP_RESULT ")]
         digests = {ln.split()[1]: ln.split()[2] for ln in lines if ln.startswith("DP_DIGEST ")}
-        if backend == "gloo" and proc.returncode != 0:
-            phase("data_parallel", f"{nproc} ranks over gloo on one card did not run (exit "
-                  f"{proc.returncode}, {wall:.1f} s):\n{proc.stderr[-3000:]}")
-            result["gloo_2rank"] = {"ran": False, "exit": proc.returncode,
-                                    "stderr_tail": proc.stderr[-1500:]}
-            continue
         if proc.returncode != 0 or len(res) != 1 or len(digests) != nproc:
             raise SystemExit(f"data_parallel over {backend} failed (exit {proc.returncode}):\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
@@ -1202,8 +1531,17 @@ def data_parallel_phase(smi):
               f"{r['survey_shape']} maps equal {r['survey_maps_equal']}, change indices equal "
               f"{r['survey_change_equal']}, prop_seq launches (mesh, alone) {per_rank_seq}, "
               f"{r['survey_mesh_ms']:.2f} ms vs {r['survey_alone_ms']:.2f} ms wall; {wall:.1f} s")
+        if backend == "nccl":
+            graph_ok = r["graph_losses_equal"] and r["graph_state_equal"]
+            graph_msg = (f"steps_per_dispatch 2 over NCCL (bf16, fused_bn='fused'): graph vs "
+                         f"eager losses equal {r['graph_losses_equal']}, states equal "
+                         f"{r['graph_state_equal']}")
+        else:
+            graph_ok = bool(r["graph_refused"]) and "gloo" in r["graph_refused"]
+            graph_msg = f"steps_per_dispatch 2 over gloo refused: {r['graph_refused']!r}"
+        phase("data_parallel", graph_msg)
         ok = (r["survey_maps_equal"] and r["survey_change_equal"] and per_rank_seq == [1, 1]
-              and len(set(digests.values())) == 1)
+              and len(set(digests.values())) == 1 and graph_ok)
         if r["world"] == 1:  # an all-reduce over one rank is the identity
             ok = ok and r["params_equal"] and r["losses"]["mesh"] == r["losses"]["alone"]
         else:  # one step from one init, as tests/test_torch_parallel.py holds it; later
@@ -1212,9 +1550,9 @@ def data_parallel_phase(smi):
             ok = ok and rel[0] <= 1e-5 and r["stats_err"] <= 1.0
         if not ok:
             raise SystemExit(f"data_parallel over {backend}: the mesh disagrees with one device")
-        result[f"{backend}_{nproc}rank"] = {**r, "ran": True, "loss_rel": rel, "wall_s": wall}
+        result[f"{backend}_{nproc}rank"] = {**r, "loss_rel": rel, "wall_s": wall}
     phase("times", f"{smi} | " + " ".join(
-        f"{k}_{m}={v[m]:.4f}" for k, v in result.items() if v.get("ran")
+        f"{k}_{m}={v[m]:.4f}" for k, v in result.items()
         for m in ("crw_step_mesh_ms", "crw_step_alone_ms", "survey_mesh_ms", "survey_alone_ms")))
     return result
 
@@ -1233,7 +1571,8 @@ def main() -> int:
     from radar_sounder_crw_tpu_torch.infer import PropagationPipeline
     from radar_sounder_crw_tpu_torch.infer.propagate import seed_onehot_from_segmentation
     from radar_sounder_crw_tpu_torch.models import create_model
-    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda  # noqa: F401 (registers its source)
+    from radar_sounder_crw_tpu_torch.ops import cuda_build, labelprop_cuda
     from radar_sounder_crw_tpu_torch.ops.labelprop import (
         LabelPropConfig,
         _affinity,
@@ -1252,7 +1591,9 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = labelprop_cuda.build(verbose=True)
+    libs = cuda_build.build(verbose=True)
+    if sorted(libs) != sorted([*labelprop_cuda.NAMES, "bn_train"]):
+        raise SystemExit(f"the build made {sorted(libs)}")
     phase("build", f"ok {sorted(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -1605,7 +1946,9 @@ def main() -> int:
 
     # 12-18. training -------------------------------------------------------------
     train_times = train_vs_cpu_phase()
-    train_times.update(crw_step_phase(smi))
+    bn = bn_kernels_phase(smi, BENCH["B"] * BENCH["T"] * 113)
+    crw_times, bn_launches = crw_step_phase(smi)
+    train_times.update(crw_times)
     cli_train_times, pts = train_cli_phase()
     train_times.update(cli_train_times)
     train_times.update(trained_inference_phase(pts))
@@ -1682,7 +2025,29 @@ def main() -> int:
         "launches_cli_test_all": cli_launches["prop_all"],
         "launches_annotate": annotate_launches["prop_all"],
         "launches_auto_limits": auto_launches["prop_all"],
-    }], "times": times, "survey_times": survey_times, "cli_times": cli_times,
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "radar_sounder_crw_tpu_torch/csrc/bn_train.cu",
+        # the jax.custom_vjp's forward (_bn_train_impl) and backward (_bn_train_bwd)
+        "replaces": "radar_sounder_crw_tpu/models/fused_bn.py:"
+                    + ("58" if name in ("bn_stats", "bn_apply") else "76"),
+        # the main path: 20 bfloat16 steps of the bench configuration, fused_bn='fused'
+        "launches": bn_launches["bf16_fused"][name],
+        "launches_f32_fused": bn_launches["f32_fused"][name],
+        "launches_lean": {k: v[name] for k, v in bn_launches.items() if k.endswith("lean")},
+        "max_abs_err": bn["max_abs_err"][name],
+        # a step's 13 BatchNorm shapes, summed; bfloat16 (float32 beside)
+        "ms": bn["totals"]["bf16"][f"{name}_ms"],
+        "plain_ms": bn["totals"]["bf16"][f"{name}_plain_ms"],
+        "bound_ms": bn["totals"]["bf16"][f"{name}_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": bn["totals"]["bf16"][f"{name}_library_ms"],
+        "ms_f32": bn["totals"]["f32"][f"{name}_ms"],
+        "plain_ms_f32": bn["totals"]["f32"][f"{name}_plain_ms"],
+        "bound_ms_f32": bn["totals"]["f32"][f"{name}_bound_ms"],
+        "library_ms_f32": bn["totals"]["f32"][f"{name}_library_ms"],
+    } for name in BN_KERNELS], "bn_totals": bn["totals"], "times": times, "survey_times": survey_times, "cli_times": cli_times,
         "train_times": train_times, "data_parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@ and defaults, the same printed lines (parameter count, one line per epoch,
 `Saved encoder to ...`, `Finished training.`), the encoder written as a
 reference-layout `.pt`, and `--ckpt_dir`/`--resume` through torch
 checkpoints. Besides the script's flags: `--device` (default cuda) and
-`--no_plots` (skip `output/_loss.png`). Not ported: `--steps_per_dispatch`
-(TPU only).
+`--no_plots` (skip `output/_loss.png`). `--steps_per_dispatch k` runs each
+k full batches as one dispatch: one CUDA graph replay of k steps on the
+card, k eager steps on the CPU (train/crw_trainer.py).
 
 `--tune` runs the ASHA search (train/tune.py) over the reference's grid,
 one trial per visible CUDA device unless `--tune_sequential`, with
@@ -49,6 +50,8 @@ def get_args_parser():
     parser.add_argument("--bf16", action="store_true", help="bfloat16 encoder compute")
     parser.add_argument("--remat", action="store_true",
                         help="recompute encoder activations in the backward")
+    parser.add_argument("--steps_per_dispatch", default=1, type=int,
+                        help="k optimizer steps a dispatch (one CUDA graph replay on the card)")
     parser.add_argument("--seed", default=11, type=int)
     parser.add_argument("--ckpt_dir", default=None, help="checkpoint dir (enables resume)")
     parser.add_argument("--resume", action="store_true")
@@ -84,6 +87,7 @@ def build(args):
         seed=args.seed,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         remat=args.remat,
+        steps_per_dispatch=args.steps_per_dispatch,
     )
     dataset = create_dataset(
         id=args.dataset,

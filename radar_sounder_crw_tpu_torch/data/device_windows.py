@@ -12,7 +12,7 @@ Follows radar_sounder_crw_tpu/data/device_windows.py.
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -32,6 +32,14 @@ def window_index_arrays(geo: GridGeometry, length: int | None = None):
         np.arange(T)[:, None] * (geo.w - geo.ow) + np.arange(geo.w)[None, :]
     ).reshape(-1)
     return row_idx.astype(np.int32), col_rel.astype(np.int32)
+
+
+@lru_cache(maxsize=64)
+def _window_index_tensors(geo: GridGeometry, T: int, device: torch.device):
+    """`window_index_arrays` as int64 tensors on `device`, uploaded once (a
+    CUDA graph that captures a gather can upload nothing)."""
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                 for a in window_index_arrays(geo, T))
 
 
 def _checked_host_indices(indices, stacked: bool, geo: GridGeometry, T: int, rg_shape):
@@ -79,8 +87,7 @@ def gather_windows(rg: torch.Tensor, indices, geo: GridGeometry, length: int | N
         indices = _checked_host_indices(indices, stacked, geo, T, tuple(rg.shape))
     dev = rg.device
     idx = torch.as_tensor(indices, dtype=torch.int64, device=dev)
-    row_idx, col_rel = (torch.as_tensor(a, dtype=torch.int64, device=dev)
-                        for a in window_index_arrays(geo, T))
+    row_idx, col_rel = _window_index_tensors(geo, T, dev)
     if stacked:
         cols = (geo.w - geo.ow) * idx[:, 1, None] + col_rel[None, :]  # (B, T*w)
         x = rg[idx[:, 0, None, None], row_idx[None, :, None], cols[:, None, :]]  # (B, N*h, T*w)

@@ -23,12 +23,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .resnet import BatchNorm, ResNetCore, f32_head
-
-# BatchNorm variants of the JAX package's make_norm that are recorded TPU
-# negative results and are not ported (radar_sounder_crw_tpu/models/resnet.py
-# make_norm, models/fused_bn.py)
-_NOT_PORTED_BN = (True, "fused", "lean")
+from .resnet import ResNetCore, f32_head, make_norm
 
 
 class _Encoder(nn.Module):
@@ -38,8 +33,10 @@ class _Encoder(nn.Module):
     compute_dtype = torch.float32
 
     def _autocast(self, x: torch.Tensor):
+        # no cast cache: a CUDA graph of train steps may capture the forward,
+        # and each weight is cast once a forward either way
         return torch.autocast(x.device.type, dtype=self.compute_dtype,
-                              enabled=self.compute_dtype != torch.float32)
+                              enabled=self.compute_dtype != torch.float32, cache_enabled=False)
 
 
 class CNNEncoder(_Encoder):
@@ -72,13 +69,13 @@ class ResNetEncoder(_Encoder):
     """1x1(+pad) stem to 3ch + BN + ReLU, then the ResNet-10 core to 128."""
 
     def __init__(self, pos_embed: bool = False, embed_dim: int = 128, stage_sizes=(1, 1, 1, 1),
-                 twopass: bool = False):
+                 fused_bn=None):
         super().__init__()
         in_ch = 2 if pos_embed else 1
         self.fc0 = nn.Conv2d(in_ch, 3, 1, padding=1)
-        self.bn0 = BatchNorm(3, twopass)
+        self.bn0 = make_norm(fused_bn, 3)
         self.relu = nn.ReLU(inplace=True)
-        self.model = ResNetCore(stage_sizes=stage_sizes, num_classes=embed_dim, twopass=twopass)
+        self.model = ResNetCore(stage_sizes=stage_sizes, num_classes=embed_dim, fused_bn=fused_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with self._autocast(x):
@@ -107,34 +104,22 @@ def _init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
 
 
-def bn_twopass(fused_bn) -> bool:
-    """The JAX package's `fused_bn` knob -> the port's BatchNorm variance:
-    None is flax's one-pass default, 'twopass' the two-pass one."""
-    if fused_bn in _NOT_PORTED_BN:
-        raise ValueError(
-            f"fused_bn={fused_bn!r}: the JAX package's hand-scheduled "
-            "(True/'fused') and bf16-read ('lean') BatchNorms are recorded TPU "
-            "negative results and are not ported; use None or 'twopass'"
-        )
-    if fused_bn not in (None, "twopass"):
-        raise ValueError(f"unknown BatchNorm implementation {fused_bn!r}")
-    return fused_bn == "twopass"
-
-
 def create_model(model_id: int, pos_embed: bool, device=None, seed: int = 0,
                  dtype=torch.float32, fused_bn=None) -> nn.Module:
     """Integer model registry (0 = CNN, 1 = ResNet), initialized from `seed`
     on the CPU, in eval mode on `device` (default cuda; raises when absent).
-    `dtype` is the compute dtype (float32 or bfloat16); `fused_bn` None or
-    'twopass' picks the train-mode batch variance (models/resnet.py)."""
+    `dtype` is the compute dtype (float32 or bfloat16); `fused_bn` picks
+    the ResNet's BatchNorm as the JAX package's `make_norm` does (None,
+    'twopass', True/'fused', 'lean'; models/resnet.py `make_norm`). The CNN
+    has no BatchNorm and takes `fused_bn` unread, as the JAX trainer passes
+    it to the ResNet alone."""
     device = resolve_device(device)
-    twopass = bn_twopass(fused_bn)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {dtype} is not float32 or bfloat16")
     if model_id == 0:
         model = CNNEncoder(pos_embed=pos_embed)
     elif model_id == 1:
-        model = ResNetEncoder(pos_embed=pos_embed, twopass=twopass)
+        model = ResNetEncoder(pos_embed=pos_embed, fused_bn=fused_bn)
     else:
         raise ValueError(f"unknown model id {model_id} (0=CNN, 1=ResNet)")
     model.compute_dtype = dtype

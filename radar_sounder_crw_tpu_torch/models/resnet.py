@@ -3,7 +3,8 @@ embed, at stage sizes (1, 1, 1, 1) a "ResNet-10", and the BatchNorm every
 port model trains with.
 
 Follows radar_sounder_crw_tpu/models/resnet.py (`BasicBlock`, `ResNetCore`,
-`make_norm`) with the plain 7x7/stride-2 stem only; the JAX package's
+`make_norm`: flax's rule, two-pass, and models/fused_bn.py's `fused` and
+`lean`) with the plain 7x7/stride-2 stem only; the JAX package's
 space-to-depth stem and batch-minor layout are TPU layout work and compute
 the same function. Submodule names are the reference state_dict names
 (`conv1`, `bn1`, `layer2.0.downsample.0`, `fc`), so weights load with
@@ -60,15 +61,20 @@ class BatchNorm(nn.BatchNorm2d):
         else:
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        self._track(mean, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Blend the batch statistics into the running ones (flax's rule),
+        unless `track_running_stats` is off."""
         if self.track_running_stats:
             decay = 1.0 - self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)
                 self.running_var.copy_(decay * self.running_var + self.momentum * var)
                 self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
 
 
 def _cross_rank_moments(xf: torch.Tensor, mesh, twopass: bool):
@@ -86,6 +92,26 @@ def _cross_rank_moments(xf: torch.Tensor, mesh, twopass: bool):
     moments = all_reduce_sum(torch.stack([xf.mean(dim=dims), xf.square().mean(dim=dims)]),
                              mesh) / mesh.size
     return moments[0], (moments[1] - moments[0].square()).clamp_min(0.0)
+
+
+def make_norm(fused_bn, channels: int) -> BatchNorm:
+    """The BatchNorm factory of the JAX package's `make_norm`
+    (radar_sounder_crw_tpu/models/resnet.py): flax's rule, the one-pass
+    variance (None/False), its two-pass variance ('twopass'), the
+    hand-scheduled `FusedBatchNorm` (True/'fused') or the bf16-read
+    `LeanBatchNorm` ('lean') of models/fused_bn.py. State-dict keys are the
+    same for all four."""
+    from .fused_bn import FusedBatchNorm, LeanBatchNorm
+
+    if fused_bn in (None, False):
+        return BatchNorm(channels)
+    if fused_bn == "twopass":
+        return BatchNorm(channels, twopass=True)
+    if fused_bn in (True, "fused"):
+        return FusedBatchNorm(channels)
+    if fused_bn == "lean":
+        return LeanBatchNorm(channels)
+    raise ValueError(f"unknown BatchNorm implementation {fused_bn!r}")
 
 
 @contextlib.contextmanager
@@ -136,17 +162,17 @@ class BasicBlock(nn.Module):
     """Two 3x3 convs with a residual connection (expansion 1)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, use_projection: bool = False,
-                 twopass: bool = False):
+                 fused_bn=None):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = BatchNorm(planes, twopass)
+        self.bn1 = make_norm(fused_bn, planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = BatchNorm(planes, twopass)
+        self.bn2 = make_norm(fused_bn, planes)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
             nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-                BatchNorm(planes, twopass),
+                make_norm(fused_bn, planes),
             )
             if use_projection
             else None
@@ -168,11 +194,11 @@ class ResNetCore(nn.Module):
         num_classes: int = 128,
         width: int = 64,
         in_channels: int = 3,
-        twopass: bool = False,
+        fused_bn=None,
     ):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, width, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm(width, twopass)
+        self.bn1 = make_norm(fused_bn, width)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes, planes = width, width
@@ -181,7 +207,7 @@ class ResNetCore(nn.Module):
             for block in range(nblocks):
                 first = stage > 0 and block == 0
                 blocks.append(BasicBlock(inplanes, planes, stride=2 if first else 1,
-                                         use_projection=first, twopass=twopass))
+                                         use_projection=first, fused_bn=fused_bn))
                 inplanes = planes
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             planes *= 2

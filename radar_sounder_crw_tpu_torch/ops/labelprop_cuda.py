@@ -17,11 +17,11 @@
 tile core of csrc/prop_tile.cuh; `prop_seq` and `prop_all` instantiate the
 same two kernels, csrc/prop_frames.cuh.
 
-Each source is compiled at first use with its own `nvcc` for sm_90a (all
-sources at once) into a shared library with a plain C interface, under
-`.torch_ext_build/` beside the package, and loaded with ctypes; a build
-keyed by the hash of the sources and flags is reused. A failed build or
-launch raises: nothing falls back to the plain version on a CUDA tensor.
+Each source is registered with the port's one build (`ops/cuda_build.py`:
+one `nvcc` a source for sm_90a, all at once, at first use, a plain C
+interface loaded with ctypes, reused while the sources are unchanged). A
+failed build or launch raises: nothing falls back to the plain version on
+a CUDA tensor.
 What a launch asks of the card (shared-memory limit, occupancy) is asked
 once per process, device and shape.
 
@@ -36,16 +36,11 @@ call, whatever the number of steps or phases inside it.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import cuda_build
 from .labelprop import (
     _affinity,
     _chunk_lists,
@@ -56,102 +51,44 @@ from .labelprop import (
 from .labelprop import _prop_step as prop_step_reference
 from .labelprop import propagate_all_reference, propagate_seq_reference
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {name: CSRC / f"{name}.cu" for name in ("prop_step", "prop_seq", "prop_all")}
-HEADERS = tuple(CSRC / h for h in ("prop_common.cuh", "prop_tile.cuh", "prop_frames.cuh"))
-BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-lineinfo",
-)
+NAMES = ("prop_step", "prop_seq", "prop_all")
+for _name in NAMES:
+    cuda_build.register(_name, ("prop_common.cuh", "prop_tile.cuh", "prop_frames.cuh"))
 
 TILE_QUERIES, TILE_ROWS = 64, 128  # csrc/prop_tile.cuh: kQ, kR
 MAX_KNN = 256  # csrc/prop_tile.cuh: 32 * kMaxListChunks, for every kernel
 
-launches = {name: 0 for name in SOURCES}
-_libs: dict[str, ctypes.CDLL] = {}
+launches = {name: 0 for name in NAMES}
 _answers: dict[tuple, int] = {}
 _pin_arrays: dict[tuple, torch.Tensor] = {}
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    for c in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def _library_path(name: str) -> Path:
-    blob = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
-    tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
-
-
-def build(verbose: bool = False) -> dict[str, Path]:
-    """Compile every kernel source without a library for its hash, one nvcc
-    per source, all started together; returns {name: library}.
-    verbose=True rebuilds all and prints ptxas's register and
-    shared-memory report."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, src in SOURCES.items():
-        out = _library_path(name)
-        if out.exists() and not verbose:
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-               "-o", str(tmp), str(src)]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                       text=True), tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(f"[{name}] {err.strip()}")
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {name: _library_path(name) for name in SOURCES}
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_WHOLE_SEQUENCE = {  # csrc/prop_frames.cuh, bound by prop_seq.cu and prop_all.cu
+    "select_launch": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
+    "chain_launch": ([_P] * 3 + [_I] * 6 + [_P], _I),
+    "select_smem_bytes": ([_I] * 2, _LL),
+    "chain_smem_bytes": ([_I] * 5, _LL),
+}
+_COMMON = {"max_dynamic_smem": ([], _I), "max_classes": ([], _I),
+           "error_string": ([_I], ctypes.c_char_p)}
+SIGNATURES = {
+    "prop_step": {
+        "launch": ([_P] * 8 + [_I] * 3 + [_F] + [_I] * 5 + [_P], _I),
+        "smem_bytes": ([_I], _LL),
+        "wave": ([_I], _I),
+        **_COMMON,
+    },
+    "prop_seq": {**_WHOLE_SEQUENCE, **_COMMON},
+    "prop_all": {**_WHOLE_SEQUENCE, **_COMMON},
+}
 
 
 def _library(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
-        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        whole_sequence = {  # csrc/prop_frames.cuh, bound by prop_seq.cu and prop_all.cu
-            "select_launch": ([p] * 5 + [i] * 6 + [f] + [i] * 3 + [p], i),
-            "chain_launch": ([p] * 3 + [i] * 6 + [p], i),
-            "select_smem_bytes": ([i] * 2, ll),
-            "chain_smem_bytes": ([i] * 5, ll),
-        }
-        signatures = {
-            "prop_step": {
-                "launch": ([p] * 8 + [i] * 3 + [f] + [i] * 5 + [p], i),
-                "smem_bytes": ([i], ll),
-                "wave": ([i], i),
-            },
-            "prop_seq": dict(whole_sequence),
-            "prop_all": dict(whole_sequence),
-        }[name]
-        signatures.update({"max_dynamic_smem": ([], i), "max_classes": ([], i),
-                           "error_string": ([i], ctypes.c_char_p)})
-        for fn, (args, res) in signatures.items():
-            getattr(lib, f"{name}_{fn}").argtypes = args
-            getattr(lib, f"{name}_{fn}").restype = res
-        _libs[name] = lib
-    return _libs[name]
+    return cuda_build.library(name, SIGNATURES[name])
 
 
-def _on(device: torch.device):
-    """The context that makes `device` current, entered only when it is not
-    (entering one costs microseconds on every launch)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+_on = cuda_build.on_device
 
 
 def _ask(name: str, device: torch.device, fn: str, *args) -> int:

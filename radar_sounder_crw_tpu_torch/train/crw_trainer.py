@@ -17,7 +17,15 @@ whole batch's, and the gradients and the loss are summed over the ranks in
 one buffer before Adam, so every rank holds the parameters one device would.
 A batch that the mesh does not divide (the partial last one) runs whole on
 every rank with no collective, which keeps its BatchNorm statistics exact.
-The TPU knobs `steps_per_dispatch` and `s2d_stem` are not ported.
+
+`steps_per_dispatch = k` cuts each epoch into chunks of k full batches, as
+the JAX trainer's scanned `multi_step` does: on the card a chunk is one
+CUDA graph replay of k captured steps (train/step_graph.py; the first
+chunk's steps run eagerly and warm the capture up), on the CPU k eager
+steps; a partial chunk runs as plain steps. Such a trainer's Adam is
+`capturable` on the card. `fused_bn` picks the ResNet's BatchNorm as the
+JAX package's `make_norm` does (models/resnet.py). The TPU knob `s2d_stem`
+(a layout of the same stem) is not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..data.device_windows import gather_windows, resident_source
@@ -38,6 +47,7 @@ from ..ops.crw import crw_loss
 from ..parallel.mesh import all_reduce_grads, default_mesh, shard_batch
 from ..utils.device import parity_mode
 from ..utils.pos_embed import maybe_pos_embed
+from .step_graph import StepGraph
 
 
 @dataclasses.dataclass
@@ -60,7 +70,12 @@ class CRWTrainConfig:
     # radargram(s) uploaded once; None = whenever the dataset serves windows of
     # host radargrams (data/device_windows.resident_source), False = host
     # batches, True = raise where the dataset does not allow it
-    fused_bn: str | None = None  # None: one-pass batch variance; 'twopass'
+    steps_per_dispatch: int = 1  # k optimizer steps a dispatch: one CUDA graph
+    # replay of k captured steps on the card, k eager steps on the CPU (the
+    # same arithmetic); partial chunks run as plain steps
+    fused_bn: bool | str | None = None  # the ResNet's BatchNorm
+    # (models/resnet.py make_norm): None one-pass, 'twopass', True/'fused'
+    # the BatchNorm kernels of csrc/bn_train.cu, 'lean' bf16-read statistics
 
 
 def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
@@ -88,8 +103,8 @@ def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
         model.train()
         stats = contextlib.nullcontext() if mesh is None else cross_rank_statistics(model, mesh)
         with stats:
-            if remat:
-                emb = checkpoint(encode, seq, use_reentrant=False,
+            if remat:  # the encoder draws no random numbers: no RNG state to keep
+                emb = checkpoint(encode, seq, use_reentrant=False, preserve_rng_state=False,
                                  context_fn=no_update_on_recompute)
             else:
                 emb = encode(seq)
@@ -123,6 +138,7 @@ class CRWTrainer:
         self.step = 0
         self._epoch_idx = 0  # global epoch counter driving the shuffle order
         self._resident_rg = None  # (host array, its upload)
+        self._chunks = {}  # static buffers and StepGraph of each k-step chunk shape
 
     # -- lifecycle -----------------------------------------------------------
     def init_state(self, example_item_shape):
@@ -131,9 +147,13 @@ class CRWTrainer:
         self._init_shape = tuple(int(d) for d in example_item_shape)
         self.model = create_model(cfg.model, cfg.pos_embed, device=self.device, seed=cfg.seed,
                                   dtype=cfg.dtype, fused_bn=cfg.fused_bn)
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr)
+        # a CUDA graph of Adam's steps needs its step counts on the card
+        capturable = self._k() > 1 and self.device.type == "cuda"
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=cfg.lr,
+                                          capturable=capturable)
         self._step_fn = make_crw_train_step(self.model, self.optimizer, cfg.tau,
                                             cfg.pos_embed, cfg.remat)
+        self._chunks = {}
         self.step = 0
         self.n_params = param_count(self.model)
 
@@ -145,7 +165,8 @@ class CRWTrainer:
 
     def load_state_dict(self, state: dict):
         self.model.load_state_dict(state["model"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.load_state_dict(state["optimizer"])  # new state tensors:
+        self._chunks = {}  # a captured graph would update the old ones
         self.step = int(state["step"])
 
     def variables(self) -> dict:
@@ -173,13 +194,73 @@ class CRWTrainer:
 
     def _run(self, seq: torch.Tensor, batch_size: int, sharded: bool) -> torch.Tensor:
         """The step on this rank's rows `seq` of a batch of `batch_size`."""
-        weights = torch.ones(seq.shape[0], dtype=torch.float32, device=self.device)
-        if sharded:
-            loss = self._step_fn(seq, weights, self.mesh, float(batch_size))
-        else:
-            loss = self._step_fn(seq, weights)
+        loss = self._loss_step(seq, batch_size, sharded)
         self.step += 1
         return loss
+
+    def _loss_step(self, seq: torch.Tensor, batch_size: int, sharded: bool) -> torch.Tensor:
+        weights = torch.ones(seq.shape[0], dtype=torch.float32, device=self.device)
+        if sharded:
+            return self._step_fn(seq, weights, self.mesh, float(batch_size))
+        return self._step_fn(seq, weights)
+
+    # -- k steps a dispatch ----------------------------------------------------
+    def _k(self) -> int:
+        return max(1, int(self.config.steps_per_dispatch))
+
+    def train_chunk(self, batches) -> torch.Tensor:
+        """k = len(batches) optimizer steps on batches (k, B, T, N, h, w) of
+        full size, a host array or a tensor on the device, as one dispatch:
+        one CUDA graph replay on the card (the first chunk of a shape runs
+        eagerly and is captured), k eager steps on the CPU. Returns the
+        (k,) losses, each the whole batch's."""
+        B = batches.shape[1]
+        sharded = self.mesh.shards(B)
+        if sharded:
+            rows = [shard_batch(b, self.mesh) for b in batches]
+            batches = torch.stack(rows) if isinstance(batches, torch.Tensor) else np.stack(rows)
+        return self._dispatch(("host", tuple(batches.shape), B, sharded), batches)
+
+    def _dispatch(self, key: tuple, data) -> torch.Tensor:
+        """One chunk: `data` (the k batches, or with key[0] == 'resident'
+        their window ids) into the static buffer of `key`, then its steps."""
+        if key not in self._chunks:
+            self._chunks[key] = self._make_chunk(key)
+        buffer, losses, run = self._chunks[key]
+        if isinstance(data, torch.Tensor):
+            buffer.copy_(data, non_blocking=True)
+        else:
+            host = torch.as_tensor(np.asarray(data, dtype=np.float32 if key[0] == "host"
+                                              else np.int64))
+            buffer.copy_(host.pin_memory() if self.device.type == "cuda" else host,
+                         non_blocking=True)
+        run()
+        self.step += buffer.shape[0]
+        return losses.clone()
+
+    def _make_chunk(self, key: tuple):
+        """(static input buffer, static (k,) loss buffer, StepGraph) of a
+        chunk: key ('host', shape, B, sharded) reads the k batches from the
+        buffer, key ('resident', shape, B, sharded, geo) gathers them from
+        the uploaded radargram by the window ids in the buffer."""
+        kind, shape, B, sharded = key[:4]
+        if self.device.type == "cuda" and self.mesh.group is not None:
+            backend = dist.get_backend(self.mesh.group)
+            if backend != "nccl":
+                raise ValueError(
+                    f"steps_per_dispatch > 1 on the card captures the steps in a CUDA graph, "
+                    f"and {backend} collectives on CUDA tensors cannot be captured (NCCL can)")
+        buffer = torch.zeros(shape, dtype=torch.float32 if kind == "host" else torch.int64,
+                             device=self.device)
+        losses = torch.zeros(shape[0], dtype=torch.float32, device=self.device)
+        rg = self._resident_rg[1] if kind == "resident" else None
+
+        def body():
+            for j in range(shape[0]):
+                seq = buffer[j] if rg is None else gather_windows(rg, buffer[j], key[4])
+                losses[j].copy_(self._loss_step(seq, B, sharded))
+
+        return buffer, losses, StepGraph(body, self.device)
 
     def _resident(self, dataset):
         """(radargram on the device, geometry, index map) or None."""
@@ -201,6 +282,7 @@ class CRWTrainer:
         if self._resident_rg is None or self._resident_rg[0] is not rg_host:
             rg_dev = torch.as_tensor(np.asarray(rg_host, np.float32)).to(self.device)
             self._resident_rg = (rg_host, rg_dev)
+            self._chunks = {k: v for k, v in self._chunks.items() if k[0] != "resident"}
         return self._resident_rg[1], geo, index_map
 
     def fit(self, dataset, log: Callable[[str], None] = print) -> list[float]:
@@ -209,13 +291,17 @@ class CRWTrainer:
         the mean loss and wall time logged. A restored trainer continues the
         schedule from step // steps_per_epoch (same dataset length and batch
         size as the run that saved it). On a mesh every rank runs the same
-        schedule on its rows of each batch; rank 0 alone logs."""
+        schedule on its rows of each batch; rank 0 alone logs. With
+        steps_per_dispatch = k > 1 (and a batch size the mesh divides) each
+        run of k full batches is one dispatch (`train_chunk`), the rest
+        plain steps."""
         cfg = self.config
         if self.mesh.rank != 0:
             log = lambda _msg: None  # noqa: E731 (rank 0 alone logs)
         if self.model is None:
             self.init_state(dataset[0].shape)
         steps_per_epoch = max(1, -(-len(dataset) // cfg.batch_size))
+        k = self._k()
         if self._epoch_idx == 0 and self.step > 0:
             self._epoch_idx = self.step // steps_per_epoch
         resident = self._resident(dataset)
@@ -241,14 +327,42 @@ class CRWTrainer:
                 return self._upload(np.stack([dataset[int(i)] for i in idxs])), B, sharded
 
             losses = []
-            staged = stage(0) if starts else None
-            for si in range(len(starts)):
-                args = staged
-                if si + 1 < len(starts):
-                    staged = stage(si + 1)  # prefetch while this step runs
-                losses.append(self._run(*args))
+            if k > 1 and cfg.batch_size % self.mesh.size == 0:
+                si = 0
+                while si < len(starts):
+                    kk = min(k, len(starts) - si)
+                    batches = [order[starts[si + j]: starts[si + j] + cfg.batch_size]
+                               for j in range(kk)]
+                    if kk == k and all(len(b) == cfg.batch_size for b in batches):
+                        losses.extend(self._dispatch_batches(batches, dataset, resident))
+                    else:  # the tail: plain steps
+                        losses.extend(self._run(*stage(si + j)) for j in range(kk))
+                    si += kk
+            else:
+                staged = stage(0) if starts else None
+                for si in range(len(starts)):
+                    args = staged
+                    if si + 1 < len(starts):
+                        staged = stage(si + 1)  # prefetch while this step runs
+                    losses.append(self._run(*args))
             epoch_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
             history.append(epoch_loss)
             log(f"Epoch: {epoch} Loss: {epoch_loss} Time: {time.time() - t0:.3f}")
         return history
 
+
+    def _dispatch_batches(self, batches: list, dataset, resident) -> list[torch.Tensor]:
+        """k full batches of dataset indices as one dispatch: their window
+        ids into the resident chunk's buffer, or the windows themselves into
+        the host chunk's."""
+        B = len(batches[0])
+        sharded = self.mesh.shards(B)
+        if sharded:
+            batches = [shard_batch(b, self.mesh) for b in batches]
+        if resident is not None:
+            _, geo, index_map = resident
+            ids = np.stack([index_map[b] for b in batches]).astype(np.int64)
+            key = ("resident", ids.shape, B, sharded, geo)
+            return list(self._dispatch(key, ids).unbind(0))
+        data = np.stack([np.stack([dataset[int(i)] for i in b]) for b in batches])
+        return list(self._dispatch(("host", data.shape, B, sharded), data).unbind(0))

@@ -17,7 +17,7 @@ import torch.distributed as dist
 from _torch_threads import TORCH_THREADS
 from radar_sounder_crw_tpu_torch.data import RGWindows, synthetic_radargram
 from radar_sounder_crw_tpu_torch.infer import PropagationPipeline
-from radar_sounder_crw_tpu_torch.models import BatchNorm, create_model, cross_rank_statistics
+from radar_sounder_crw_tpu_torch.models import create_model, cross_rank_statistics, make_norm
 from radar_sounder_crw_tpu_torch.ops.labelprop import LabelPropConfig
 from radar_sounder_crw_tpu_torch.parallel import all_reduce_grads, make_mesh, shard_batch
 from radar_sounder_crw_tpu_torch.train import (
@@ -84,17 +84,18 @@ def unet_run(mesh, size: int) -> dict:
     return out
 
 
-def bn_run(mesh) -> dict:
-    """One train-mode BatchNorm (one-pass, then two-pass) on this rank's
-    rows of a (8, 4, 5, 5) batch inside `cross_rank_statistics`: its
+def bn_run(mesh, variants=None) -> dict:
+    """One train-mode BatchNorm of each of `variants` {key: fused_bn value}
+    (default the one-pass rule under False, two-pass under True) on this
+    rank's rows of a (8, 4, 5, 5) batch inside `cross_rank_statistics`: its
     output, the gradients of its input, weight and bias under a fixed
     linear loss, and its running statistics."""
     rng = np.random.default_rng(4)
     x_all = torch.as_tensor(rng.standard_normal((8, 4, 5, 5)).astype(np.float32) + 0.3)
     r_all = torch.as_tensor(rng.standard_normal((8, 4, 5, 5)).astype(np.float32))
     out = {}
-    for twopass in (False, True):
-        bn = BatchNorm(4, twopass).train()
+    for key, fused_bn in (variants or {False: None, True: "twopass"}).items():
+        bn = make_norm(fused_bn, 4).train()
         with torch.no_grad():
             bn.weight.copy_(torch.linspace(0.5, 1.5, 4))
             bn.bias.copy_(torch.linspace(-0.2, 0.2, 4))
@@ -105,7 +106,7 @@ def bn_run(mesh) -> dict:
             (y * shard_batch(r_all, mesh)).sum().backward()
         if mesh.group is not None:
             all_reduce_grads(bn.parameters(), mesh, torch.zeros(()))
-        out[twopass] = {"y": y.detach(), "x_grad": x.grad, "weight_grad": bn.weight.grad,
+        out[key] = {"y": y.detach(), "x_grad": x.grad, "weight_grad": bn.weight.grad,
                         "bias_grad": bn.bias.grad, "running_mean": bn.running_mean.clone(),
                         "running_var": bn.running_var.clone()}
     return out
@@ -145,14 +146,27 @@ def run_checks(mesh, inits: dict) -> dict:
     }
 
 
-def rank_main(rank: int, world: int, init_file: str, out_dir: str) -> None:
+def fused_bn_checks(mesh, inits: dict) -> dict:
+    """The ResNet with models/fused_bn.py's BatchNorms ('fused', 'lean'): a
+    sharded step and a whole one from the init, and each BatchNorm alone."""
+    out = {}
+    for variant in ("fused", "lean"):
+        for name, size in (("sharded", SHARDED), ("whole", WHOLE)):
+            out[f"resnet_{variant}_{name}"] = crw_run(mesh, 1, inits["resnet"], (size,),
+                                                      fused_bn=variant)
+    out["bn"] = bn_run(mesh, {"fused": "fused", "lean": "lean"})
+    return out
+
+
+def rank_main(rank: int, world: int, init_file: str, out_dir: str,
+              checks: str = "run_checks") -> None:
     torch.set_num_threads(TORCH_THREADS)  # the one process's: the same kernels' sums
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world)
     try:
         mesh = make_mesh()
         inits = torch.load(os.path.join(out_dir, "inits.pt"), weights_only=True)
-        result = run_checks(mesh, inits)
+        result = globals()[checks](mesh, inits)
         result["mesh"] = (mesh.size, mesh.rank, str(mesh.device))
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:

@@ -1,4 +1,7 @@
-"""The CUDA propagation kernels against their plain PyTorch twins, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card: the
+propagation kernels, the train-mode BatchNorm kernels (and the modules of
+models/fused_bn.py on them), and a CUDA graph of k train steps against k
+eager steps.
 
 Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
 one. The file imports no JAX, so on a machine without it run:
@@ -357,3 +360,176 @@ def test_cli_test_all_batched_matches_the_plain_route(cuda, tmp_path, monkeypatc
         assert launched >= 2 if kernel == "auto" else launched == 0
     assert maps["auto"].shape == maps["torch"].shape
     assert (maps["auto"] == maps["torch"]).mean() >= 0.995
+
+
+# -- the train-mode BatchNorm kernels (csrc/bn_train.cu) ------------------------
+BN_SHAPES = [  # (N, C, H, W): sums exact on the 2**-5 grid while N*H*W <= 16384
+    (48, 3, 18, 18),  # bn0 at 16x16 patches
+    (32, 64, 9, 9),  # the stem
+    (96, 64, 5, 5),  # layer1
+    (40, 512, 1, 1),  # layer4: a channel's elements C apart
+    (7, 5, 3, 3),  # a partial tile, channels across tiles
+]
+
+
+def _grid(shape, seed, dtype, device):
+    """Values k/32 in [-1, 1]: exact in bfloat16, every sum and product of
+    two of them exact in float32 at these sizes."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(-32, 33, shape) / 32, dtype=dtype, device=device)
+
+
+def _ulps(got, want):
+    """|got - want| in units in the last place of `want` in its dtype."""
+    bits = 23 if want.dtype == torch.float32 else 7
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), (e - 1 - bits).float())
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_kernels_equal_their_twins(cuda, shape, dtype):
+    """Each kernel against its plain twin on the same inputs: the sums bit
+    for bit on the grid (for the backward's sum g * xhat with statistics
+    mean 0, var 1 and eps 0, so that xhat = x), mean and var bit for bit,
+    y and dx within 2 ulp of their dtype."""
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda
+
+    C = shape[1]
+    x, g = _grid(shape, 0, dtype, cuda), _grid(shape, 1, dtype, cuda)
+    scale = torch.linspace(0.5, 1.5, C, device=cuda)
+    bias = torch.linspace(-0.25, 0.25, C, device=cuda)
+    before = dict(bn_cuda.launches)
+    sums = bn_cuda.stats(x)
+    assert torch.equal(sums, bn_cuda.stats_reference(x))
+    y, mean, var = bn_cuda.apply(x, sums, scale, bias, 1e-5)
+    y_t, mean_t, var_t = bn_cuda.apply_reference(x, sums, scale, bias, 1e-5)
+    assert y.dtype == dtype and torch.equal(mean, mean_t) and torch.equal(var, var_t)
+    assert _ulps(y, y_t) <= 2
+    n = float(sums[-1])
+    unit = torch.cat([torch.zeros(C, device=cuda), torch.full((C,), n, device=cuda),
+                      torch.tensor([n], device=cuda)])  # mean 0, var 1
+    assert torch.equal(bn_cuda._moments_reference(unit, C, 0.0)[2],
+                       torch.ones((1, C, 1, 1), device=cuda))
+    assert torch.equal(bn_cuda.backward_reduce(g, x, unit, 0.0),
+                       bn_cuda.backward_reduce_reference(g, x, unit, 0.0))
+    gsums = bn_cuda.backward_reduce(g, x, sums, 1e-5)
+    want = bn_cuda.backward_reduce_reference(g, x, sums, 1e-5)
+    assert torch.equal(gsums[:C], want[:C])
+    assert (gsums[C:] - want[C:]).abs().max().item() <= 1e-6 * float(sums[-1])
+    dx = bn_cuda.dx(g, x, sums, gsums, scale, 1e-5)
+    assert dx.dtype == dtype
+    assert _ulps(dx, bn_cuda.dx_reference(g, x, sums, gsums, scale, 1e-5)) <= 2
+    torch.cuda.synchronize()
+    assert {k: bn_cuda.launches[k] - before[k] for k in before} == {
+        "bn_stats": 1, "bn_apply": 1, "bn_backward_reduce": 2, "bn_dx": 1}
+
+
+def test_bn_kernels_reject_bad_inputs(cuda):
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda
+
+    x = torch.zeros((4, 3, 5, 5), device=cuda)
+    sums = bn_cuda.stats(x)
+    one = torch.ones(3, device=cuda)
+    with pytest.raises(ValueError, match="contiguous 4-D"):
+        bn_cuda.stats(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous 4-D"):
+        bn_cuda.stats(x.half())
+    with pytest.raises(ValueError, match="sums"):
+        bn_cuda.apply(x, sums[:-1], one, one, 1e-5)
+    with pytest.raises(ValueError, match="scale"):
+        bn_cuda.apply(x, sums, one.cpu(), one, 1e-5)
+    with pytest.raises(ValueError, match="like x"):
+        bn_cuda.backward_reduce(x.bfloat16(), x, sums, 1e-5)
+
+
+@pytest.mark.parametrize("variant", ["fused", "lean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_and_lean_batchnorm_on_the_card(cuda, variant, dtype):
+    """One train-mode step of each module on the card against the same
+    module on the CPU (the twins): outputs, input and parameter gradients,
+    running statistics within float32 summation noise; the card's run
+    launches the kernels (fused: all four, lean: the statistics)."""
+    from radar_sounder_crw_tpu_torch.models import make_norm
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda
+
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((64, 32, 6, 6)) * 2 + 0.5, dtype=dtype)
+    cot = torch.as_tensor(rng.standard_normal((64, 32, 6, 6)), dtype=dtype)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        bn = make_norm(variant, 32).to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 32))
+            bn.bias.copy_(torch.linspace(-0.3, 0.3, 32))
+        xd = x.to(dev).requires_grad_(True)
+        before = dict(bn_cuda.launches)
+        y = bn(xd)
+        (y.float() * cot.to(dev).float()).sum().backward()
+        launched = {k: bn_cuda.launches[k] - before[k] for k in before}
+        got[dev.type] = [t.detach().float().cpu() for t in (
+            y, xd.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var)]
+        if dev.type == "cuda":
+            want = ({"bn_stats": 1, "bn_apply": 1, "bn_backward_reduce": 1, "bn_dx": 1}
+                    if variant == "fused" else
+                    {"bn_stats": 1, "bn_apply": 0, "bn_backward_reduce": 0, "bn_dx": 0})
+            assert launched == want
+        else:
+            assert not any(launched.values())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("y", "dx", "dscale", "dbias", "mean", "var"), got["cuda"],
+                          got["cpu"]):
+        scale = float(b.abs().max()) or 1.0
+        assert (a - b).abs().max().item() <= tol * scale, name
+
+
+@pytest.mark.parametrize("fused_bn", [None, "fused"])
+def test_graphed_chunk_equals_eager_steps(cuda, fused_bn, tmp_path):
+    """steps_per_dispatch = 3 on the card, cuDNN deterministic: two chunks
+    through `train_chunk` (the first eager, the second one graph replay)
+    equal six `train_step` calls of the same trainer configuration bit for
+    bit: losses, parameters and buffers, Adam's state. A checkpoint of the
+    graphed trainer restores into a fresh one whose next chunk (captured
+    anew) equals the eager trainer's next three steps."""
+    from radar_sounder_crw_tpu_torch.train import CheckpointManager, CRWTrainConfig, CRWTrainer
+    from radar_sounder_crw_tpu_torch.train import step_graph
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        B, T, N, hw = 2, 5, 6, (16, 16)
+        rng = np.random.default_rng(0)
+        data = torch.as_tensor(rng.standard_normal((9, B, T, N, *hw)).astype(np.float32),
+                               device=cuda)
+        cfg = CRWTrainConfig(model=1, batch_size=B, seq_length=T, lr=1e-3, tau=0.05,
+                             fused_bn=fused_bn, steps_per_dispatch=3)
+        graphed, eager = CRWTrainer(cfg, device=cuda), CRWTrainer(cfg, device=cuda)
+        for tr in (graphed, eager):
+            tr.init_state((T, N, *hw))
+        eager.model.load_state_dict(graphed.model.state_dict(), strict=True)
+        replays = step_graph.replays
+        got = torch.cat([graphed.train_chunk(data[0:3]), graphed.train_chunk(data[3:6])])
+        want = torch.stack([eager.train_step(b) for b in data[:6]])
+        assert step_graph.replays == replays + 1 and graphed.step == eager.step == 6
+        assert torch.equal(got, want)
+
+        def same_state(a, b):
+            for k, v in a.model.state_dict().items():
+                assert torch.equal(v, b.model.state_dict()[k]), k
+            sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+            for i in sa:
+                for k in sa[i]:
+                    assert torch.equal(sa[i][k], sb[i][k]), (i, k)
+
+        same_state(graphed, eager)
+        mgr = CheckpointManager(tmp_path)
+        mgr.save(graphed.step, graphed.state_dict())
+        resumed = CRWTrainer(cfg, device=cuda)
+        resumed.init_state((T, N, *hw))
+        resumed.load_state_dict(mgr.restore())
+        got = resumed.train_chunk(data[6:9])
+        want = torch.stack([eager.train_step(b) for b in data[6:9]])
+        assert torch.equal(got, want)
+        same_state(resumed, eager)
+    finally:
+        torch.backends.cudnn.deterministic = False

@@ -1,10 +1,11 @@
 """The port's CRW trainer on its own paths (CPU, float32 unless stated):
 the epoch order across fit() calls, the resident path's refusal, remat,
 bfloat16, checkpoints and resume, the exported encoder in both packages,
-and the device and BatchNorm refusals. Paths that do the same arithmetic
-are compared exactly (remat and no remat, a resumed run and an
-uninterrupted one); bfloat16 against float32: the step-1 loss within
-relative 2e-2. tests/test_torch_train.py holds the trainer to the JAX one.
+the device refusal, and the BatchNorm variants' modules. Paths that do
+the same arithmetic are compared exactly (remat and no remat, a resumed
+run and an uninterrupted one); bfloat16 against float32: the step-1 loss
+within relative 2e-2. tests/test_torch_train.py holds the trainer to the
+JAX one.
 """
 
 import jax
@@ -133,8 +134,18 @@ def test_exported_encoder_loads_in_both_packages(tmp_path):
 
 @pytest.mark.parametrize("fused_bn", [True, "fused", "lean"])
 def test_tpu_batchnorm_variants_are_refused(fused_bn):
-    with pytest.raises(ValueError, match="not ported"):
-        CRWTrainer(CRWTrainConfig(model=1, fused_bn=fused_bn), device="cpu").init_state(
+    """The JAX package's hand-scheduled BatchNorms, refused before they were
+    ported (models/fused_bn.py), now build every BatchNorm of the trainer's
+    ResNet; a value the JAX `make_norm` does not know is refused."""
+    from radar_sounder_crw_tpu_torch.models import BatchNorm, FusedBatchNorm, LeanBatchNorm
+
+    trainer = CRWTrainer(CRWTrainConfig(model=1, fused_bn=fused_bn), device="cpu")
+    trainer.init_state((4, 4, 16, 16))
+    kind = LeanBatchNorm if fused_bn == "lean" else FusedBatchNorm
+    bns = [m for m in trainer.model.modules() if isinstance(m, BatchNorm)]
+    assert len(bns) == 13 and all(type(m) is kind for m in bns)
+    with pytest.raises(ValueError, match="unknown BatchNorm implementation"):
+        CRWTrainer(CRWTrainConfig(model=1, fused_bn=f"{fused_bn}x"), device="cpu").init_state(
             (4, 4, 16, 16))
 
 
