@@ -97,9 +97,15 @@ Phases, one line each, any failure exits non-zero:
      float32 and bfloat16, each against its plain twin (sums bit for bit on
      2**-5-grid inputs, within relative 1e-5 of the sums of magnitudes on
      real ones; mean and var bit for bit; y and dx within 2 ulp given the
-     same sums), then each one's device time beside its twin's, one
-     PyTorch call of the same function and its bound, and
-     F.batch_norm(training=True) forward and backward;
+     same sums; stats and apply repeat their bits on a second call), then
+     each one's device time (CUDA events around 10 eager calls) beside its
+     twin's, one PyTorch call of the same function and its bound, and
+     F.batch_norm(training=True) forward and backward; and the device-only
+     time of each kernel and library call (10 calls in one CUDA graph,
+     each on another copy of its inputs, the replays timed: neither the
+     host's launch work nor the L2 cache sets it) with its bound share,
+     and of torch.sum over all of x and a copy of x as yardsticks of a
+     read and a read-and-write;
  13. crw_step: CRW train steps at bench.py's configuration (B = 8, T = 20,
      16x16, overlap (8, 0), synthetic SHARAD 912 x 4096 seed 13, N = 113),
      the batch gathered once on the card, float32 and bfloat16, with
@@ -182,6 +188,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -832,6 +839,31 @@ BN_KERNELS = ("bn_stats", "bn_apply", "bn_backward_reduce", "bn_dx")
 BN_BYTES = {"bn_stats": 1, "bn_apply": 2, "bn_backward_reduce": 2, "bn_dx": 3}
 BN_OPS = {"bn_stats": 3, "bn_apply": 4, "bn_backward_reduce": 5, "bn_dx": 5}  # float32 ops
 K_DISPATCH = 8  # bench.py:227's K
+L2_BYTES = 50e6  # H100 SXM L2
+GRAPH_CALLS = 10  # calls captured in one CUDA graph for a device-only time
+
+
+def graph_ms(fn, copies, calls=GRAPH_CALLS, replays=3):
+    """Device-only ms a call: `calls` calls fn(i) captured in one CUDA graph
+    and its replays timed with CUDA events, so the host's work around a
+    launch (the wrapper's checks, allocations, the ctypes call) is left out.
+    Call i reads copy i % copies of its inputs, enough copies that no call
+    finds its input in the L2 cache."""
+    for i in range(2):
+        fn(i % copies)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i % copies)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def bench_batch():
@@ -891,7 +923,13 @@ def bn_kernels_phase(smi, patches):
     function (torch.var_mean; F.batch_norm with the batch's statistics;
     native_batch_norm_backward for the parameter gradients, and for the
     input gradient, which it computes with its reductions), and
-    F.batch_norm(training=True) forward and backward, against the bound."""
+    F.batch_norm(training=True) forward and backward, against the bound.
+    Each kernel and library call also has a device-only time (`graph_ms`:
+    ten calls in one CUDA graph, each on another copy of its inputs, so
+    that neither the host nor the L2 cache sets it), beside PyTorch's own
+    sum of all of x and copy of x (the pace the memory gives a read and a
+    read-and-write of those bytes), and the forward kernels repeat their
+    bits on a second call."""
     import torch.nn.functional as F
 
     from radar_sounder_crw_tpu_torch.ops import bn_cuda
@@ -927,7 +965,10 @@ def bn_kernels_phase(smi, patches):
             gmags = torch.cat([gf.abs().sum((0, 2, 3)), (gf * xhat).abs().sum((0, 2, 3))])
             dx = bn_cuda.dx(g, x, sums, gsums, scale, BN_EPS)
             dx_t = bn_cuda.dx_reference(g, x, sums, gsums, scale, BN_EPS)
+            again = bn_cuda.apply(x, sums, scale, bias, BN_EPS)
             check = {
+                "repeat_equal": (torch.equal(bn_cuda.stats(x), sums)
+                                 and all(torch.equal(a, b) for a, b in zip(again, (y, mean, var)))),
                 "sums_rel": ((sums - sums_t).abs() / mags).max().item(),
                 "gsums_rel": ((gsums - gsums_t).abs() / gmags).max().item(),
                 "y_ulps": ulps(y, y_t), "dx_ulps": ulps(dx, dx_t),
@@ -938,7 +979,8 @@ def bn_kernels_phase(smi, patches):
                          ("bn_backward_reduce", gsums - gsums_t),
                          ("bn_dx", dx.float() - dx_t.float())):
                 errs[k] = max(errs[k], d.abs().max().item())
-            if not (exact and check["mean_var_equal"] and check["sums_rel"] <= 1e-5
+            if not (exact and check["repeat_equal"] and check["mean_var_equal"]
+                    and check["sums_rel"] <= 1e-5
                     and check["gsums_rel"] <= 1e-5 and check["y_ulps"] <= 2
                     and check["dx_ulps"] <= 2):
                 raise SystemExit(f"a BatchNorm kernel disagrees with its twin at {shape} "
@@ -966,6 +1008,34 @@ def bn_kernels_phase(smi, patches):
             ms = {k: cuda_ms(c[0], 10, 2) for k, c in calls.items()}
             plain = {k: cuda_ms(c[1], 5, 1) for k, c in calls.items()}
             library = {k: cuda_ms(c[2], 10, 2) for k, c in calls.items()}
+            # device-only: the same calls on copies of x and g, in a graph
+            copies = min(GRAPH_CALLS, max(1, int(-(-2 * L2_BYTES // (x.numel() * size)))))
+            xs = [x] + [x.clone() for _ in range(copies - 1)]
+            gs = [g] + [g.clone() for _ in range(copies - 1)]
+            on_copy = {  # name: (kernel, library call) of copy i
+                "bn_stats": (lambda i: bn_cuda.stats(xs[i]),
+                             lambda i: torch.var_mean(xs[i], dim=(0, 2, 3), correction=0)),
+                "bn_apply": (lambda i: bn_cuda.apply(xs[i], sums, scale, bias, BN_EPS),
+                             lambda i: F.batch_norm(xs[i], mean, var, scale, bias, False, 0.0,
+                                                    BN_EPS)),
+                "bn_backward_reduce": (
+                    lambda i: bn_cuda.backward_reduce(gs[i], xs[i], sums, BN_EPS),
+                    lambda i: torch.ops.aten.native_batch_norm_backward(
+                        gs[i], xs[i], scale, None, None, mean_, invstd, True, BN_EPS,
+                        [False, True, True])),
+                "bn_dx": (lambda i: bn_cuda.dx(gs[i], xs[i], sums, gsums, scale, BN_EPS),
+                          lambda i: torch.ops.aten.native_batch_norm_backward(
+                              gs[i], xs[i], scale, None, None, mean_, invstd, True, BN_EPS,
+                              [True, False, False])),
+            }
+            device = {k: graph_ms(c[0], copies) for k, c in on_copy.items()}
+            device_library = {k: graph_ms(c[1], copies) for k, c in on_copy.items()}
+            # what PyTorch's own kernels take to read x (one sum of all of
+            # it) and to copy it: the memory's practical pace for stats and
+            # apply
+            read = graph_ms(lambda i: xs[i].sum(), copies)
+            copy = graph_ms(lambda i: torch.empty_like(xs[i]).copy_(xs[i]), copies)
+            del xs, gs, on_copy
             rm, rv = torch.zeros(C, device="cuda"), torch.ones(C, device="cuda")
             xr = x.detach().requires_grad_(True)
             w, b = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
@@ -977,7 +1047,10 @@ def bn_kernels_phase(smi, patches):
             bound = {k: max(BN_BYTES[k] * size * elems / PEAK_BYTES,
                             BN_OPS[k] * elems / PEAK_F32_FLOPS) * 1e3 for k in BN_KERNELS}
             row = {"shape": list(shape), "dtype": tag, **check, "ms": ms, "bound_ms": bound,
-                   "plain_ms": plain, "library_ms": library,
+                   "plain_ms": plain, "library_ms": library, "device_ms": device,
+                   "device_library_ms": device_library, "device_read_ms": read,
+                   "device_copy_ms": copy,
+                   "device_share": {k: bound[k] / device[k] for k in BN_KERNELS},
                    "fwd_ms": ms["bn_stats"] + ms["bn_apply"],
                    "bwd_ms": ms["bn_backward_reduce"] + ms["bn_dx"],
                    "plain_fwd_ms": plain["bn_stats"] + plain["bn_apply"],
@@ -986,13 +1059,16 @@ def bn_kernels_phase(smi, patches):
             rows.append(row)
             for k in BN_KERNELS:
                 for key, v in (("ms", ms), ("bound_ms", bound), ("plain_ms", plain),
-                               ("library_ms", library)):
+                               ("library_ms", library), ("device_ms", device),
+                               ("device_library_ms", device_library)):
                     tot[f"{k}_{key}"] = tot.get(f"{k}_{key}", 0.0) + v[k]
             for k in ("fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "batch_norm_fwd_ms",
-                      "batch_norm_bwd_ms"):
+                      "batch_norm_bwd_ms", "device_read_ms", "device_copy_ms"):
                 tot[k] = tot.get(k, 0.0) + row[k]
-            del x, g, xf, gf, xhat, xr, y, y_t, dx, dx_t, calls
+            del x, g, xf, gf, xhat, xr, y, y_t, dx, dx_t, calls, again
         tot["bound_ms"] = sum(tot[f"{k}_bound_ms"] for k in BN_KERNELS)
+        for k in BN_KERNELS:
+            tot[f"{k}_device_share"] = tot[f"{k}_bound_ms"] / tot[f"{k}_device_ms"]
         phase("bn_kernels", f"{tag}, 13 shapes of {patches} patches: kernels fwd "
               f"{tot['fwd_ms']:.3f} + bwd {tot['bwd_ms']:.3f} ms a step (stats "
               f"{tot['bn_stats_ms']:.3f}, apply {tot['bn_apply_ms']:.3f}, reduce "
@@ -1001,6 +1077,12 @@ def bn_kernels_phase(smi, patches):
               f"{tot['plain_bwd_ms']:.3f}; F.batch_norm {tot['batch_norm_fwd_ms']:.3f} + "
               f"{tot['batch_norm_bwd_ms']:.3f}; one PyTorch call a kernel "
               + " ".join(f"{k[3:]}={tot[k + '_library_ms']:.3f}" for k in BN_KERNELS))
+        phase("bn_kernels", f"{tag}, device-only (graphs of {GRAPH_CALLS} calls, cold L2): "
+              + " ".join(f"{k[3:]} {tot[k + '_device_ms']:.4f} ms (bound "
+                         f"{tot[k + '_bound_ms']:.4f}, share {tot[k + '_device_share']:.3f}; "
+                         f"library {tot[k + '_device_library_ms']:.4f})" for k in BN_KERNELS)
+              + f"; torch.sum of x {tot['device_read_ms']:.4f}, a copy of x "
+              f"{tot['device_copy_ms']:.4f}")
         torch.cuda.empty_cache()
     for r in rows:
         phase("bn_kernels", f"{r['dtype']} {tuple(r['shape'])}: kernels "
@@ -1008,13 +1090,28 @@ def bn_kernels_phase(smi, patches):
               + f" (bound {sum(r['bound_ms'].values()):.4f}); twin {r['plain_fwd_ms']:.3f}+"
               f"{r['plain_bwd_ms']:.3f}; F.batch_norm {r['batch_norm_fwd_ms']:.4f}+"
               f"{r['batch_norm_bwd_ms']:.4f}; sums rel {r['sums_rel']:.1e}/{r['gsums_rel']:.1e}, "
-              f"ulps y {r['y_ulps']:.0f} dx {r['dx_ulps']:.0f}")
+              f"ulps y {r['y_ulps']:.0f} dx {r['dx_ulps']:.0f}; device-only "
+              + " ".join(f"{k[3:]}={r['device_ms'][k]:.4f} ({r['device_share'][k]:.2f}, library "
+                         f"{r['device_library_ms'][k]:.4f})" for k in BN_KERNELS)
+              + f", sum {r['device_read_ms']:.4f}, copy {r['device_copy_ms']:.4f}")
     phase("times", f"{smi} | " + " ".join(
         f"bn_{tag}_{k}={v:.4f}" for tag, t in totals.items() for k, v in t.items()))
     OUT.mkdir(exist_ok=True)
     with open(OUT / "bn_kernels.json", "w") as f:
         json.dump({"card": smi, "rows": rows, "totals": totals}, f)
     return {"rows": rows, "totals": totals, "max_abs_err": errs}
+
+
+def require_freed(what, *refs):
+    """Called right after `del` of the referents of `refs` (trainers) with
+    the cyclic collector off: turns it back on, and fails unless every one
+    was freed by reference counting alone, so that no reference cycle holds
+    a trainer, its CUDA graph or the graph's memory pool."""
+    alive = sum(r() is not None for r in refs)
+    gc.enable()
+    if alive:
+        raise SystemExit(f"{what}: {alive} dropped trainer(s) not freed with the cyclic "
+                         f"collector off (a reference cycle holds them)")
 
 
 def crw_step_phase(smi):
@@ -1102,8 +1199,10 @@ def crw_step_phase(smi):
               f"{reserved_gb:.2f}), idle {busy['device_idle_share']:.4f}, BatchNorm kernel "
               f"launches {launched}, graph replays {replayed}{extra}; losses {losses[0]:.5f} "
               f"-> {loss:.5f}")
+        ref = weakref.ref(trainer)
+        gc.disable()
         del trainer, run
-        gc.collect()  # a trainer's graph holds the trainer in a cycle
+        require_freed(f"crw_step {tag}", ref)
         torch.cuda.empty_cache()
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in times.items()))
     times.update(graph_vs_eager(seq))
@@ -1149,8 +1248,10 @@ def graph_vs_eager(seq):
                 raise SystemExit(f"the CUDA graph of {K_DISPATCH} steps differs from eager "
                                  f"steps ({tag})")
             result[f"graph_vs_eager_bf16_{tag}"] = equal
-            del graphed, eager
-            gc.collect()
+            refs = weakref.ref(graphed), weakref.ref(eager)
+            gc.disable()
+            del graphed, eager, tr
+            require_freed(f"graph_vs_eager {tag}", *refs)
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2047,6 +2148,11 @@ def main() -> int:
         "plain_ms_f32": bn["totals"]["f32"][f"{name}_plain_ms"],
         "bound_ms_f32": bn["totals"]["f32"][f"{name}_bound_ms"],
         "library_ms_f32": bn["totals"]["f32"][f"{name}_library_ms"],
+        # device-only (phase 12b's graphs): the kernel's and the library call's
+        "device_ms": bn["totals"]["bf16"][f"{name}_device_ms"],
+        "device_ms_f32": bn["totals"]["f32"][f"{name}_device_ms"],
+        "library_device_ms": bn["totals"]["bf16"][f"{name}_device_library_ms"],
+        "library_device_ms_f32": bn["totals"]["f32"][f"{name}_device_library_ms"],
     } for name in BN_KERNELS], "bn_totals": bn["totals"], "times": times, "survey_times": survey_times, "cli_times": cli_times,
         "train_times": train_times, "data_parallel": parallel}))
     print(json.dumps({"ok": True, "device": {

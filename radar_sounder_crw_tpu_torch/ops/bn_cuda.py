@@ -20,13 +20,20 @@ float32. Each function takes its plain twin (`*_reference`, the same
 arithmetic in PyTorch ops) for CPU tensors and launches its kernel for CUDA
 tensors; on the card a wrong dtype, layout or device raises, and nothing
 calls `.contiguous()` or the twin. `launches[name]` counts the calls that
-launch kernel `name` (the reductions' two passes count as one). The source
-is built by ops/cuda_build.py with the propagation kernels.
+launch kernel `name` (the backward reduction's two passes count as one;
+each forward kernel is one launch, in whichever vector variant its plan
+takes). `forward_plan` and `backward_plan` size the grids: pure functions
+of the shape (and for the forward pair the dtype, the SM count and x's
+alignment), so the CPU tests reach them. The source is built by
+ops/cuda_build.py with the propagation kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,44 +42,175 @@ from . import cuda_build
 cuda_build.register("bn_train")
 
 NAMES = ("bn_stats", "bn_apply", "bn_backward_reduce", "bn_dx")
-TILE = 256  # csrc/bn_train.cu: kThreads, the positions of a tile
-TARGET_CTAS = 2048  # a (tile, sample chunk) grid of about this many CTAs
+# csrc/bn_train.cu's constants, checked against the library at first use
+THREADS = 256  # kThreads: threads of a CTA; positions of a backward tile
+CTAS_PER_SM = 4  # kCtasPerSm: the forward kernels' residency, CTAs an SM in one wave
+STATS_CTAS_PER_SM = 2  # the stats grid: half a wave, so that its last CTAs sum few partials
+APPLY_VECTORS = 8  # vectors an apply thread walks at least, to hide its CTA's start-up
+MAX_SLOTS = 128  # kMaxSlots: channel slots of a forward tile
+ROW_BYTES = 128  # the least of a sample's row a forward tile reads: one cache line
+TARGET_CTAS = 2048  # the backward kernels' (tile, sample chunk) grid: about this many CTAs
 launches = {name: 0 for name in NAMES}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "stats": ([_P, _I] + [_I] * 5 + [_P, _P, _P], _I),
-    "apply": ([_P, _I, _P, _P, _P, _F] + [_I] * 5 + [_P] * 4, _I),
+    "stats": ([_P, _I] + [_I] * 12 + [_P] * 4, _I),
+    "apply": ([_P, _I, _P, _P, _P, _F] + [_I] * 12 + [_P] * 4, _I),
     "backward_reduce": ([_P, _P, _I, _P, _F] + [_I] * 5 + [_P] * 3, _I),
     "dx": ([_P, _P, _I, _P, _P, _P, _F] + [_I] * 5 + [_P, _P], _I),
-    "tile_positions": ([], _I),
+    "constant": ([_I], _I),
     "error_string": ([_I], ctypes.c_char_p),
 }
 DIMS = (0, 2, 3)
 
 
-def plan(N: int, C: int, HW: int) -> tuple[int, int, int]:
-    """(samples a chunk, chunks, tiles) of the grid for N samples of C*HW
-    positions: ceil(C*HW / TILE) tiles by as many chunks as bring the grid
-    to about TARGET_CTAS. A function of the shape alone, so a shape's sums
-    are always taken in the same order."""
-    tiles = -(-(C * HW) // TILE)
+class ForwardPlan(NamedTuple):
+    """The grid of `stats` and `apply` (csrc/bn_train.cu): `tiles` x
+    `chunks` CTAs of `threads` threads. A CTA covers `tile` vectors of
+    `vector` elements of a sample's C*HW plane, `rows` samples at a time,
+    over a chunk of `chunk` samples; its partial sums take `slots` channel
+    slots, and the last CTA of each group of `group` tiles sums them."""
+
+    vector: int
+    tile: int
+    rows: int
+    threads: int
+    tiles: int
+    chunk: int
+    chunks: int
+    slots: int
+    group: int
+
+    @property
+    def groups(self) -> int:
+        """Ticket counters the stats kernel uses."""
+        return -(-self.tiles // self.group)
+
+    @property
+    def scratch(self) -> int:
+        """float32 partials of the stats kernel: (sum x, sum x*x) a (tile,
+        chunk, channel slot)."""
+        return 2 * self.tiles * self.chunks * self.slots
+
+
+@functools.lru_cache(maxsize=512)
+def forward_plan(N: int, C: int, HW: int, itemsize: int, sms: int, align: int = 16,
+                 kernel: str = "stats") -> ForwardPlan:
+    """The grid of forward kernel `kernel` ('stats' or 'apply') for N
+    samples of C channels of HW positions, `itemsize` bytes an element (4
+    float32, 2 bfloat16), on a card of `sms` SMs, x's address a multiple of
+    `align` bytes. A pure function of these, so a shape's sums are always
+    taken in one order.
+
+    * vector: the most elements, up to 16 bytes, that divide the plane and
+      the alignment;
+    * tile: whole channels where a CTA's row holds them (the fewest whole
+      channels that fill whole vectors, repeated to reach ROW_BYTES, and for
+      apply, whose partly written sectors cost a read, further to a whole
+      number of 32-byte sectors where that takes at most THREADS / 2
+      vectors), one ticket a tile; else THREADS vectors, channels across
+      tiles, one ticket for the grid;
+    * rows: as many samples as fill THREADS threads;
+    * chunks: for stats STATS_CTAS_PER_SM CTAs an SM, for apply the whole
+      waves of CTAS_PER_SM CTAs an SM nearest APPLY_VECTORS vectors a
+      thread; never more than the samples allow."""
+    P = C * HW
+    vector = 16 // itemsize
+    while vector > 1 and (P % vector or align % (vector * itemsize)):
+        vector //= 2
+    vp = P // vector
+    unit = vector // math.gcd(HW, vector) * HW // vector  # whole channels, whole vectors
+    if unit <= THREADS:
+        k = -(-ROW_BYTES // (vector * itemsize * unit))
+        if kernel == "apply":  # y's rows in whole 32-byte sectors, where half a CTA holds them
+            k = next((j for j in range(k, THREADS // (2 * unit) + 1)
+                      if unit * j * vector * itemsize % 32 == 0), k)
+        tile = min(vp, unit * min(k, THREADS // unit))
+    else:
+        tile = THREADS
+    tiles = -(-vp // tile)
+    positions = tile * vector
+    whole = tiles == 1 or positions % HW == 0
+    if tiles == 1:
+        slots = C
+    elif whole:
+        slots = positions // HW
+    else:
+        slots = min(C, (positions + HW - 2) // HW + 1)
+    rows = THREADS // tile
+    if kernel == "stats":
+        ctas = STATS_CTAS_PER_SM * sms
+    else:
+        wave = CTAS_PER_SM * sms
+        ctas = wave * max(1, round(tiles * -(-N // (APPLY_VECTORS * rows)) / wave))
+    chunks = max(1, min(ctas // tiles, -(-N // rows)))
+    chunk = -(-N // chunks)
+    return ForwardPlan(vector=vector, tile=tile, rows=rows, threads=-(-tile * rows // 32) * 32,
+                       tiles=tiles, chunk=chunk, chunks=-(-N // chunk), slots=slots,
+                       group=1 if whole else tiles)
+
+
+def backward_plan(N: int, C: int, HW: int) -> tuple[int, int, int]:
+    """(samples a chunk, chunks, tiles) of the backward kernels' grid for N
+    samples of C*HW positions: ceil(C*HW / THREADS) tiles by as many chunks
+    as bring the grid to about TARGET_CTAS. A function of the shape alone,
+    so a shape's sums are always taken in the same order."""
+    tiles = -(-(C * HW) // THREADS)
     chunks = min(N, max(1, -(-TARGET_CTAS // tiles)))
     chunk = -(-N // chunks)
     return chunk, -(-N // chunk), tiles
 
 
-_tile_checked = False
+_constants_checked = False
+_sms: dict[int, int] = {}
+_tickets: dict[int, list[torch.Tensor]] = {}
 
 
 def _library() -> ctypes.CDLL:
-    global _tile_checked
+    global _constants_checked
     lib = cuda_build.library("bn_train", SIGNATURES)
-    if not _tile_checked:
-        if lib.bn_train_tile_positions() != TILE:
-            raise RuntimeError("csrc/bn_train.cu's tile differs from ops/bn_cuda.TILE")
-        _tile_checked = True
+    if not _constants_checked:
+        got = tuple(lib.bn_train_constant(i) for i in range(3))
+        if got != (THREADS, CTAS_PER_SM, MAX_SLOTS):
+            raise RuntimeError(f"csrc/bn_train.cu's (kThreads, kCtasPerSm, kMaxSlots) = {got} "
+                               f"differ from ops/bn_cuda's")
+        _constants_checked = True
     return lib
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _plan_of(x: torch.Tensor, kernel: str) -> ForwardPlan:
+    N, C, H, W = x.shape
+    index, ptr = _index(x.device), x.data_ptr()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return forward_plan(N, C, H * W, x.element_size(), _sms[index], min(16, ptr & -ptr), kernel)
+
+
+def _ticket_counters(device: torch.device, groups: int) -> torch.Tensor:
+    """Zeroed int32 counters of `device`, at least `groups` of them; a
+    stats launch leaves them zero. Kept for the process's life: a captured
+    CUDA graph holds their address. Calls on one device share them, so they
+    run in one stream's order (as every kernel of the port does)."""
+    held = _tickets.setdefault(_index(device), [])
+    if not held or held[-1].numel() < groups:
+        held.append(torch.zeros(max(groups, 4096), dtype=torch.int32, device=device))
+    return held[-1]
+
+
+def stats_buffers(pl: ForwardPlan, C: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stats kernel's scratch (its partials, `pl.scratch` floats) and
+    its output (2C + 1 floats), uninitialised."""
+    return (torch.empty(pl.scratch, dtype=torch.float32, device=device),
+            torch.empty(2 * C + 1, dtype=torch.float32, device=device))
+
+
+def _forward_args(N: int, C: int, HW: int, pl: ForwardPlan) -> tuple[int, ...]:
+    return (N, C, HW, pl.vector, pl.tile, pl.rows, pl.threads, pl.tiles, pl.chunk, pl.chunks,
+            pl.slots, pl.group)
 
 
 def _dtype_code(x: torch.Tensor) -> int:
@@ -84,8 +222,8 @@ def _check_activation(name: str, x: torch.Tensor, like: torch.Tensor | None = No
         raise ValueError(f"{name}: need a contiguous 4-D (N, C, H, W) float32 or bfloat16 "
                          f"tensor, got {x.dtype} {tuple(x.shape)} (contiguous="
                          f"{x.is_contiguous()})")
-    if x.shape[0] < 1 or x.shape[1] * x.shape[2] * x.shape[3] >= 2**31:
-        raise ValueError(f"{name}: need 1 or more samples of fewer than 2**31 positions, "
+    if x.shape[0] < 1 or not 1 <= x.shape[1] * x.shape[2] * x.shape[3] < 2**31:
+        raise ValueError(f"{name}: need 1 or more samples of 1 to 2**31 - 1 positions, "
                          f"got {tuple(x.shape)}")
     if like is not None and (x.dtype, x.shape, x.device) != (like.dtype, like.shape, like.device):
         raise ValueError(f"{name}: need {like.dtype} {tuple(like.shape)} on {like.device} like "
@@ -100,8 +238,9 @@ def _check_vector(name: str, v: torch.Tensor, size: int, device: torch.device) -
 
 
 def _geometry(x: torch.Tensor):
+    """(N, C, HW, the backward plan) of x."""
     N, C, H, W = x.shape
-    return N, C, H * W, plan(N, C, H * W)
+    return N, C, H * W, backward_plan(N, C, H * W)
 
 
 def _raise_on(lib, what: str, err: int) -> None:
@@ -163,13 +302,15 @@ def stats(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return stats_reference(x)
     _check_activation("x", x)
-    N, C, HW, (chunk, S, tiles) = _geometry(x)
+    N, C, H, W = x.shape
+    pl = _plan_of(x, "stats")
     lib = _library()
-    partial = torch.empty(2 * tiles * TILE * S, dtype=torch.float32, device=x.device)
-    sums = torch.empty(2 * C + 1, dtype=torch.float32, device=x.device)
+    partial, sums = stats_buffers(pl, C, x.device)
+    tickets = _ticket_counters(x.device, pl.groups)
     with cuda_build.on_device(x.device):
-        err = lib.bn_train_stats(x.data_ptr(), _dtype_code(x), N, C, HW, chunk, S,
-                                 partial.data_ptr(), sums.data_ptr(), _stream(x.device))
+        err = lib.bn_train_stats(x.data_ptr(), _dtype_code(x), *_forward_args(N, C, H * W, pl),
+                                 partial.data_ptr(), tickets.data_ptr(), sums.data_ptr(),
+                                 _stream(x.device))
     _raise_on(lib, "bn_stats", err)
     launches["bn_stats"] += 1
     return sums
@@ -181,17 +322,18 @@ def apply(x, sums, scale, bias, eps: float):
     if x.device.type == "cpu":
         return apply_reference(x, sums, scale, bias, eps)
     _check_activation("x", x)
-    N, C, HW, (chunk, S, _) = _geometry(x)
+    N, C, H, W = x.shape
     _check_vector("sums", sums, 2 * C + 1, x.device)
     _check_vector("scale", scale, C, x.device)
     _check_vector("bias", bias, C, x.device)
+    pl = _plan_of(x, "apply")
     lib = _library()
     y = torch.empty_like(x)
     mean_var = torch.empty((2, C), dtype=torch.float32, device=x.device)
     with cuda_build.on_device(x.device):
         err = lib.bn_train_apply(x.data_ptr(), _dtype_code(x), sums.data_ptr(), scale.data_ptr(),
-                                 bias.data_ptr(), float(eps), N, C, HW, chunk, S, y.data_ptr(),
-                                 mean_var[0].data_ptr(), mean_var[1].data_ptr(),
+                                 bias.data_ptr(), float(eps), *_forward_args(N, C, H * W, pl),
+                                 y.data_ptr(), mean_var[0].data_ptr(), mean_var[1].data_ptr(),
                                  _stream(x.device))
     _raise_on(lib, "bn_apply", err)
     launches["bn_apply"] += 1
@@ -207,7 +349,7 @@ def backward_reduce(g, x, sums, eps: float) -> torch.Tensor:
     N, C, HW, (chunk, S, tiles) = _geometry(x)
     _check_vector("sums", sums, 2 * C + 1, x.device)
     lib = _library()
-    partial = torch.empty(2 * tiles * TILE * S, dtype=torch.float32, device=x.device)
+    partial = torch.empty(2 * tiles * THREADS * S, dtype=torch.float32, device=x.device)
     gsums = torch.empty(2 * C, dtype=torch.float32, device=x.device)
     with cuda_build.on_device(x.device):
         err = lib.bn_train_backward_reduce(g.data_ptr(), x.data_ptr(), _dtype_code(x),

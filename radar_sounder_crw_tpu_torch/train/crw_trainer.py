@@ -121,6 +121,15 @@ def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
     return step
 
 
+def _loss_step(step_fn, mesh, seq: torch.Tensor, batch_size: int, sharded: bool) -> torch.Tensor:
+    """One step of `step_fn` on this rank's rows `seq` of a batch of
+    `batch_size`, every item weighted 1."""
+    weights = torch.ones(seq.shape[0], dtype=torch.float32, device=seq.device)
+    if sharded:
+        return step_fn(seq, weights, mesh, float(batch_size))
+    return step_fn(seq, weights)
+
+
 class CRWTrainer:
     """Owns the encoder, Adam, the step and the epoch loop on this rank's
     device of `mesh`. Without a mesh: the process group's when one is
@@ -194,15 +203,9 @@ class CRWTrainer:
 
     def _run(self, seq: torch.Tensor, batch_size: int, sharded: bool) -> torch.Tensor:
         """The step on this rank's rows `seq` of a batch of `batch_size`."""
-        loss = self._loss_step(seq, batch_size, sharded)
+        loss = _loss_step(self._step_fn, self.mesh, seq, batch_size, sharded)
         self.step += 1
         return loss
-
-    def _loss_step(self, seq: torch.Tensor, batch_size: int, sharded: bool) -> torch.Tensor:
-        weights = torch.ones(seq.shape[0], dtype=torch.float32, device=self.device)
-        if sharded:
-            return self._step_fn(seq, weights, self.mesh, float(batch_size))
-        return self._step_fn(seq, weights)
 
     # -- k steps a dispatch ----------------------------------------------------
     def _k(self) -> int:
@@ -254,11 +257,12 @@ class CRWTrainer:
                              device=self.device)
         losses = torch.zeros(shape[0], dtype=torch.float32, device=self.device)
         rg = self._resident_rg[1] if kind == "resident" else None
+        step_fn, mesh = self._step_fn, self.mesh  # not self: the trainer owns the graph
 
         def body():
             for j in range(shape[0]):
                 seq = buffer[j] if rg is None else gather_windows(rg, buffer[j], key[4])
-                losses[j].copy_(self._loss_step(seq, B, sharded))
+                losses[j].copy_(_loss_step(step_fn, mesh, seq, B, sharded))
 
         return buffer, losses, StepGraph(body, self.device)
 

@@ -364,12 +364,16 @@ def test_cli_test_all_batched_matches_the_plain_route(cuda, tmp_path, monkeypatc
 
 # -- the train-mode BatchNorm kernels (csrc/bn_train.cu) ------------------------
 BN_SHAPES = [  # (N, C, H, W): sums exact on the 2**-5 grid while N*H*W <= 16384
-    (48, 3, 18, 18),  # bn0 at 16x16 patches
+    (48, 3, 18, 18),  # bn0 at 16x16 patches (bfloat16: 8-byte vectors)
     (32, 64, 9, 9),  # the stem
     (96, 64, 5, 5),  # layer1
     (40, 512, 1, 1),  # layer4: a channel's elements C apart
-    (7, 5, 3, 3),  # a partial tile, channels across tiles
+    (7, 5, 3, 3),  # a partial tile, channels across tiles; scalar forward loads
+    (33, 3, 18, 18),  # bn0's plane at an odd N
+    (1, 64, 5, 5),  # one sample
+    (18080, 512, 1, 1),  # layer4 of the bench step, real inputs: the 1e-5 rule
 ]
+BN_EXACT = 16384  # the most N*H*W whose grid sums are exact in float32
 
 
 def _grid(shape, seed, dtype, device):
@@ -387,22 +391,45 @@ def _ulps(got, want):
     return ((got.float() - want.float()).abs() / ulp).max().item()
 
 
+def _bn_inputs(shape, dtype, device):
+    """(x, g, exact): 2**-5-grid values where their sums are exact in
+    float32, else real ones (x ~ 2 N(0, 1) + 0.5, g ~ N(0, 1))."""
+    N, C, H, W = shape
+    if N * H * W <= BN_EXACT:
+        return _grid(shape, 0, dtype, device), _grid(shape, 1, dtype, device), True
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal(shape, np.float32) * 2 + 0.5).to(device, dtype)
+    g = torch.as_tensor(rng.standard_normal(shape, np.float32)).to(device, dtype)
+    return x, g, False
+
+
+def _relative_to_magnitudes(got, want, mags):
+    return ((got - want).abs() / mags).max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", BN_SHAPES)
 def test_bn_kernels_equal_their_twins(cuda, shape, dtype):
     """Each kernel against its plain twin on the same inputs: the sums bit
     for bit on the grid (for the backward's sum g * xhat with statistics
-    mean 0, var 1 and eps 0, so that xhat = x), mean and var bit for bit,
-    y and dx within 2 ulp of their dtype."""
+    mean 0, var 1 and eps 0, so that xhat = x), on real inputs within 1e-5
+    of the sums of magnitudes; mean and var bit for bit, y and dx within 2
+    ulp of their dtype given the same sums; one launch a call."""
     from radar_sounder_crw_tpu_torch.ops import bn_cuda
 
     C = shape[1]
-    x, g = _grid(shape, 0, dtype, cuda), _grid(shape, 1, dtype, cuda)
+    x, g, exact = _bn_inputs(shape, dtype, cuda)
     scale = torch.linspace(0.5, 1.5, C, device=cuda)
     bias = torch.linspace(-0.25, 0.25, C, device=cuda)
     before = dict(bn_cuda.launches)
     sums = bn_cuda.stats(x)
-    assert torch.equal(sums, bn_cuda.stats_reference(x))
+    if exact:
+        assert torch.equal(sums, bn_cuda.stats_reference(x))
+    else:
+        xf = x.float()
+        mags = torch.cat([xf.abs().sum(bn_cuda.DIMS), (xf * xf).sum(bn_cuda.DIMS),
+                          sums[-1:]])
+        assert _relative_to_magnitudes(sums, bn_cuda.stats_reference(x), mags) <= 1e-5
     y, mean, var = bn_cuda.apply(x, sums, scale, bias, 1e-5)
     y_t, mean_t, var_t = bn_cuda.apply_reference(x, sums, scale, bias, 1e-5)
     assert y.dtype == dtype and torch.equal(mean, mean_t) and torch.equal(var, var_t)
@@ -412,18 +439,62 @@ def test_bn_kernels_equal_their_twins(cuda, shape, dtype):
                       torch.tensor([n], device=cuda)])  # mean 0, var 1
     assert torch.equal(bn_cuda._moments_reference(unit, C, 0.0)[2],
                        torch.ones((1, C, 1, 1), device=cuda))
-    assert torch.equal(bn_cuda.backward_reduce(g, x, unit, 0.0),
-                       bn_cuda.backward_reduce_reference(g, x, unit, 0.0))
+    gsums_unit = bn_cuda.backward_reduce(g, x, unit, 0.0)
+    want_unit = bn_cuda.backward_reduce_reference(g, x, unit, 0.0)
     gsums = bn_cuda.backward_reduce(g, x, sums, 1e-5)
     want = bn_cuda.backward_reduce_reference(g, x, sums, 1e-5)
-    assert torch.equal(gsums[:C], want[:C])
-    assert (gsums[C:] - want[C:]).abs().max().item() <= 1e-6 * float(sums[-1])
+    if exact:
+        assert torch.equal(gsums_unit, want_unit)
+        assert torch.equal(gsums[:C], want[:C])
+        assert (gsums[C:] - want[C:]).abs().max().item() <= 1e-6 * float(sums[-1])
+    else:
+        gf, xf = g.float(), x.float()
+        mags = torch.cat([gf.abs().sum(bn_cuda.DIMS), (gf * xf).abs().sum(bn_cuda.DIMS)])
+        assert _relative_to_magnitudes(gsums_unit, want_unit, mags) <= 1e-5
+        m, _, inv = bn_cuda._moments_reference(sums, C, 1e-5)
+        mags[C:] = (gf * ((xf - m) * inv)).abs().sum(bn_cuda.DIMS)
+        assert _relative_to_magnitudes(gsums, want, mags) <= 1e-5
     dx = bn_cuda.dx(g, x, sums, gsums, scale, 1e-5)
     assert dx.dtype == dtype
     assert _ulps(dx, bn_cuda.dx_reference(g, x, sums, gsums, scale, 1e-5)) <= 2
     torch.cuda.synchronize()
     assert {k: bn_cuda.launches[k] - before[k] for k in before} == {
         "bn_stats": 1, "bn_apply": 1, "bn_backward_reduce": 2, "bn_dx": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_forward_repeats_its_bits_eagerly_and_in_a_graph(cuda, shape, dtype):
+    """The forward kernels' sums depend on the shape alone: two `stats`
+    calls on one input are bit-equal, and so are two `apply` calls; a CUDA
+    graph of `stats` + `apply` (its ticket counters reset by each launch)
+    replays bit-equal to the eager calls, twice. One launch a call, the
+    capture included."""
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda
+
+    C = shape[1]
+    x, _, _ = _bn_inputs(shape, dtype, cuda)
+    scale = torch.linspace(0.5, 1.5, C, device=cuda)
+    bias = torch.linspace(-0.25, 0.25, C, device=cuda)
+    sums = bn_cuda.stats(x)
+    assert torch.equal(bn_cuda.stats(x), sums)
+    y, mean, var = bn_cuda.apply(x, sums, scale, bias, 1e-5)
+    again = bn_cuda.apply(x, sums, scale, bias, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(again, (y, mean, var)))
+    torch.cuda.synchronize()
+    before = dict(bn_cuda.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_sums = bn_cuda.stats(x)
+        g_out = bn_cuda.apply(x, g_sums, scale, bias, 1e-5)
+    assert bn_cuda.launches["bn_stats"] - before["bn_stats"] == 1
+    assert bn_cuda.launches["bn_apply"] - before["bn_apply"] == 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_sums, sums)
+        assert all(torch.equal(a, b) for a, b in zip(g_out, (y, mean, var)))
+    assert torch.equal(bn_cuda.stats(x), sums)  # the counters are zero after the replays
 
 
 def test_bn_kernels_reject_bad_inputs(cuda):
@@ -436,6 +507,8 @@ def test_bn_kernels_reject_bad_inputs(cuda):
         bn_cuda.stats(x.transpose(2, 3))
     with pytest.raises(ValueError, match="contiguous 4-D"):
         bn_cuda.stats(x.half())
+    with pytest.raises(ValueError, match="positions"):
+        bn_cuda.stats(torch.zeros((4, 0, 5, 5), device=cuda))
     with pytest.raises(ValueError, match="sums"):
         bn_cuda.apply(x, sums[:-1], one, one, 1e-5)
     with pytest.raises(ValueError, match="scale"):

@@ -11,6 +11,8 @@ runs eagerly: the same arithmetic as k plain steps.
     5e-6 for the first 4 steps, 2e-4 throughout). The JAX package's own
     test holds its k = 3 to its k = 1 (tests/test_train.py), and its scan
     is not compiled here (slow on XLA:CPU).
+  * A dropped k = 3 trainer is freed at once, with the cyclic collector
+    off: no reference cycle holds it (nor, on the card, its graph).
   * `cli.train --steps_per_dispatch 3` runs, and a run resumed from its
     checkpoint ends with the encoder of an uninterrupted one, bit for bit.
 
@@ -20,8 +22,10 @@ tests/test_torch_cuda.py.
 """
 
 import contextlib
+import gc
 import io
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -82,6 +86,25 @@ def test_train_chunk_equals_train_steps():
     assert chunked.step == 3 and step_graph.replays == replays  # no graph on the CPU
     assert not any(torch.equal(a, b) for a, b in zip(
         chunked.train_chunk(batches[:, ::-1].copy()), got))
+
+
+@pytest.mark.parametrize("resident", [False, True])
+def test_a_dropped_trainer_is_freed_without_the_cyclic_collector(resident):
+    """A k = 3 trainer after `fit` holds its chunks (static buffers and a
+    StepGraph whose body runs the steps); the body refers to the step, not
+    to the trainer, so `del` frees the trainer (and on the card its graph
+    and the graph's memory pool) with the cyclic collector off."""
+    ds = _dataset()
+    gc.disable()
+    try:
+        trainer = _trainer(ds, 3, model=1, fused_bn="fused", device_resident=resident)
+        trainer.fit(ds, log=lambda s: None)
+        assert trainer._chunks
+        ref = weakref.ref(trainer)
+        del trainer
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 def test_cnn_chunks_match_jax():
