@@ -21,8 +21,9 @@ Phases, one line each, any failure exits non-zero:
      change detection on, then one reseed at frame 40; the CUDA kernel path
      against the plain path: >= 99.5 % equal maps, equal change_idx;
   4. times on the card: encode, propagate, seed->map and reseed wall ms,
-     the kernel per launch and per seed->map (CUDA events), split into its
-     tile and merge steps, with the share of the bound, the plain step,
+     the kernel per launch and per seed->map (CUDA events around eager
+     calls; per launch also device-only, 50 calls in one CUDA graph), split
+     into its tile and merge steps, with the share of the bound, the plain step,
      one torch.matmul of the same affinity product as a yardstick, and the
      host's share of a prop_step call (wall per call of the 99-call loop
      minus its device time per call, read with every launch queued behind
@@ -97,7 +98,8 @@ Phases, one line each, any failure exits non-zero:
      float32 and bfloat16, each against its plain twin (sums bit for bit on
      2**-5-grid inputs, within relative 1e-5 of the sums of magnitudes on
      real ones; mean and var bit for bit; y and dx within 2 ulp given the
-     same sums; stats and apply repeat their bits on a second call), then
+     same sums; stats, apply and backward_reduce repeat their bits on a
+     second call), then
      each one's device time (CUDA events around 10 eager calls) beside its
      twin's, one PyTorch call of the same function and its bound, and
      F.batch_norm(training=True) forward and backward; and the device-only
@@ -105,7 +107,9 @@ Phases, one line each, any failure exits non-zero:
      each on another copy of its inputs, the replays timed: neither the
      host's launch work nor the L2 cache sets it) with its bound share,
      and of torch.sum over all of x and a copy of x as yardsticks of a
-     read and a read-and-write;
+     read and a read-and-write; fails if the backward reduce, device-only,
+     is slower than native_batch_norm_backward's parameter gradients at any
+     shape in either dtype;
  13. crw_step: CRW train steps at bench.py's configuration (B = 8, T = 20,
      16x16, overlap (8, 0), synthetic SHARAD 912 x 4096 seed 13, N = 113),
      the batch gathered once on the card, float32 and bfloat16, with
@@ -928,8 +932,9 @@ def bn_kernels_phase(smi, patches):
     ten calls in one CUDA graph, each on another copy of its inputs, so
     that neither the host nor the L2 cache sets it), beside PyTorch's own
     sum of all of x and copy of x (the pace the memory gives a read and a
-    read-and-write of those bytes), and the forward kernels repeat their
-    bits on a second call."""
+    read-and-write of those bytes), and the tiled kernels repeat their bits
+    on a second call. Fails if `bn_backward_reduce`, device-only, is slower
+    than native_batch_norm_backward's parameter gradients at any shape."""
     import torch.nn.functional as F
 
     from radar_sounder_crw_tpu_torch.ops import bn_cuda
@@ -946,11 +951,16 @@ def bn_kernels_phase(smi, patches):
             g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
             scale = torch.linspace(0.5, 1.5, C, device="cuda")
             bias = torch.linspace(-0.3, 0.3, C, device="cuda")
-            # exact sums on the grid
+            # exact sums on the grid; the backward's with mean 0, var 1 and
+            # eps 0 (xhat = x)
             ne = max(1, min(N, 16384 // (H * W)))
-            xe = (torch.randint(-32, 33, (ne, C, H, W), device="cuda", generator=gen) / 32
-                  ).to(dtype)
-            exact = torch.equal(bn_cuda.stats(xe), bn_cuda.stats_reference(xe))
+            xe, ge = ((torch.randint(-32, 33, (ne, C, H, W), device="cuda", generator=gen) / 32
+                       ).to(dtype) for _ in range(2))
+            unit = torch.cat([torch.zeros(C, device="cuda"),
+                              torch.full((C + 1,), float(ne * H * W), device="cuda")])
+            exact = (torch.equal(bn_cuda.stats(xe), bn_cuda.stats_reference(xe))
+                     and torch.equal(bn_cuda.backward_reduce(ge, xe, unit, 0.0),
+                                     bn_cuda.backward_reduce_reference(ge, xe, unit, 0.0)))
             # real inputs
             xf, gf = x.float(), g.float()
             sums, sums_t = bn_cuda.stats(x), bn_cuda.stats_reference(x)
@@ -968,7 +978,9 @@ def bn_kernels_phase(smi, patches):
             again = bn_cuda.apply(x, sums, scale, bias, BN_EPS)
             check = {
                 "repeat_equal": (torch.equal(bn_cuda.stats(x), sums)
-                                 and all(torch.equal(a, b) for a, b in zip(again, (y, mean, var)))),
+                                 and all(torch.equal(a, b) for a, b in zip(again, (y, mean, var)))
+                                 and torch.equal(bn_cuda.backward_reduce(g, x, sums, BN_EPS),
+                                                 gsums)),
                 "sums_rel": ((sums - sums_t).abs() / mags).max().item(),
                 "gsums_rel": ((gsums - gsums_t).abs() / gmags).max().item(),
                 "y_ulps": ulps(y, y_t), "dx_ulps": ulps(dx, dx_t),
@@ -1065,7 +1077,7 @@ def bn_kernels_phase(smi, patches):
             for k in ("fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "batch_norm_fwd_ms",
                       "batch_norm_bwd_ms", "device_read_ms", "device_copy_ms"):
                 tot[k] = tot.get(k, 0.0) + row[k]
-            del x, g, xf, gf, xhat, xr, y, y_t, dx, dx_t, calls, again
+            del x, g, xf, gf, xhat, xr, y, y_t, dx, dx_t, calls, again, xe, ge
         tot["bound_ms"] = sum(tot[f"{k}_bound_ms"] for k in BN_KERNELS)
         for k in BN_KERNELS:
             tot[f"{k}_device_share"] = tot[f"{k}_bound_ms"] / tot[f"{k}_device_ms"]
@@ -1099,6 +1111,14 @@ def bn_kernels_phase(smi, patches):
     OUT.mkdir(exist_ok=True)
     with open(OUT / "bn_kernels.json", "w") as f:
         json.dump({"card": smi, "rows": rows, "totals": totals}, f)
+    # the backward reduce, device-only, against PyTorch's parameter
+    # gradients (native_batch_norm_backward) at every shape and dtype
+    k = "bn_backward_reduce"
+    slower = [(r["dtype"], tuple(r["shape"]), r["device_ms"][k], r["device_library_ms"][k])
+              for r in rows if r["device_ms"][k] > r["device_library_ms"][k]]
+    if slower:
+        raise SystemExit(f"bn_backward_reduce is slower than native_batch_norm_backward's "
+                         f"parameter gradients (dtype, shape, ms, library ms): {slower}")
     return {"rows": rows, "totals": totals, "max_abs_err": errs}
 
 
@@ -1815,6 +1835,9 @@ def main() -> int:
     feats, query, mask, bias, labels = step_inputs(K, N, C, M, 60, K, 0)
     args = (feats, query, mask, bias, labels, 0.01, knn, K)
     kernel_ms = cuda_ms(lambda: labelprop_cuda.prop_step(*args), iters=50)
+    # the same launch device-only: 50 calls in one CUDA graph, its replays
+    # timed (the inputs stay in the L2, as in the eager loop above)
+    kernel_device_ms = graph_ms(lambda i: labelprop_cuda.prop_step(*args), 1, calls=50)
     plain_ms = cuda_ms(lambda: _prop_step(*args), iters=20)
     f2d = feats.reshape(K * N, C)
     matmul_ms = cuda_ms(lambda: torch.matmul(f2d, query.T), iters=50)
@@ -1864,6 +1887,7 @@ def main() -> int:
     path_tile_ms = cuda_ms(lambda: [tiles(ns) for ns in nslots_path], iters=3, warmup=1)
     times.update({
         "kernel_ms_per_launch": kernel_ms,
+        "kernel_device_ms_per_launch": kernel_device_ms,
         "kernel_tile_ms_per_launch": tile_ms,
         "kernel_merge_ms_per_launch": kernel_ms - tile_ms,
         "kernel_bound_share": bound_ms / kernel_ms,
@@ -2069,6 +2093,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": mc3_err,
         "ms": kernel_ms,
+        "device_ms": kernel_device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -2130,6 +2155,9 @@ def main() -> int:
         "name": name,
         "route": "cuda",
         "source": "radar_sounder_crw_tpu_torch/csrc/bn_train.cu",
+        "design": {"bn_stats": "tiled reduction, one launch", "bn_apply": "tiled",
+                   "bn_backward_reduce": "tiled reduction, one launch",
+                   "bn_dx": "(tile, sample chunk) grid, scalar loads"}[name],
         # the jax.custom_vjp's forward (_bn_train_impl) and backward (_bn_train_bwd)
         "replaces": "radar_sounder_crw_tpu/models/fused_bn.py:"
                     + ("58" if name in ("bn_stats", "bn_apply") else "76"),

@@ -29,18 +29,21 @@
 // operations an element against 67 TFLOP/s. Every kernel streams its
 // inputs, so each is held to HBM's 3.35 TB/s.
 //
-// The forward pair (stats, apply), built for the H100:
+// The tiled kernels (stats, apply, backward_reduce), built for the H100:
 //   * 16-byte vectors. A thread loads V elements at once (8 bfloat16 or 4
-//     float32) where a sample's plane of C*HW elements and x's address are
-//     multiples of 16 bytes; otherwise the widest vector that divides both
+//     float32) where a sample's plane of C*HW elements and the address of
+//     every activation it reads (x, and g for backward_reduce) are
+//     multiples of 16 bytes; otherwise the widest vector that divides all
 //     (bfloat16 at C*HW = 972, the ResNet's first BatchNorm, takes 8 bytes).
 //     The vector is a template argument, chosen by the plan.
 //   * Bytes in flight. By Little's law HBM at 3.35 TB/s and ~0.8 us of
 //     loaded latency needs ~2.7 MB in flight, ~20 KB an SM. A thread keeps
 //     kUnroll = 4 independent vector loads in flight (2 in apply at 8
-//     bfloat16, whose 32 per-lane parameters hold the registers); an SM
-//     runs 2 stats CTAs of 256 threads (32 KB in flight) or up to
-//     kCtasPerSm = 4 apply CTAs (32-64 KB).
+//     bfloat16, whose 32 per-lane parameters hold the registers; 2 pairs
+//     of a g and an x vector in backward_reduce, whose 4 V-lane arrays of
+//     sums and moments hold them); an SM runs 2 stats or backward_reduce
+//     CTAs of 256 threads (32 KB in flight) or up to kCtasPerSm = 4 apply
+//     CTAs (32-64 KB).
 //   * A tile of whole channels. A CTA covers `tile` vectors of the plane
 //     (at least 128 bytes of a sample's row, whole channels where a CTA's
 //     row can hold them; for apply, whose partly written 32-byte sectors
@@ -58,24 +61,24 @@
 //     which sums the group's partials in a fixed order and resets the
 //     ticket for the next launch or graph replay. The order of every float
 //     addition depends on the plan alone, that is on (N, C, HW, dtype, the
-//     SM count, x's 16-byte alignment): the same input gives the same bits.
-//   * A grid from the shape and the card. stats runs half a wave (2 CTAs
-//     an SM), each CTA walking N / chunks samples, so that the last CTAs
-//     sum few partials; apply runs the whole waves of kCtasPerSm CTAs an SM
-//     nearest 8 vectors a thread, enough to hide a CTA's start-up and few
-//     enough that the waves even out the SMs' pace.
-//   * apply computes each channel's moments once a CTA, into shared memory,
-//     and each thread keeps its V positions' parameters in registers.
+//     SM count, the activations' 16-byte alignment): the same input gives
+//     the same bits.
+//   * A grid from the shape and the card. stats and backward_reduce run
+//     half a wave (2 CTAs an SM), each CTA walking N / chunks samples, so
+//     that the last CTAs sum few partials; apply runs the whole waves of
+//     kCtasPerSm CTAs an SM nearest 8 vectors a thread, enough to hide a
+//     CTA's start-up and few enough that the waves even out the SMs' pace.
+//   * apply and backward_reduce compute each channel's moments once a CTA,
+//     into shared memory, and each thread keeps its V positions' moments
+//     (and apply's parameters) in registers.
 //   * What is left: at the small late shapes (a few to 40 MB) the launch,
 //     the CTAs' reductions and the last CTA's sum are a fixed cost beside
 //     a few microseconds of reading; apply, reading and writing, runs
 //     near what the memory gives a copy.
 //
-// The backward pair runs on the (tile, sample chunk) grid of PR 10's
-// design: the threads of a CTA sit on 256 consecutive positions of the
-// plane and walk their chunk's samples one element at a time; a reduction
-// writes per-CTA partials (reduce_partials), then sums each channel's in a
-// fixed order, one warp a channel (reduce_final).
+// dx runs on the (tile, sample chunk) grid of the first design: the
+// threads of a CTA sit on 256 consecutive positions of the plane and walk
+// their chunk's samples one element at a time.
 //
 // Plain C interface, loaded with ctypes (radar_sounder_crw_tpu_torch/ops/
 // bn_cuda.py); the wrapper plans the grids and allocates the scratch.
@@ -86,13 +89,16 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // threads of a CTA; positions of a backward tile
-constexpr int kCtasPerSm = 4;  // the forward kernels' residency (launch bounds): CTAs an SM
-constexpr int kMaxSlots = 128;  // channel slots of a forward tile
+constexpr int kThreads = 256;  // threads of a CTA; positions of a dx tile
+constexpr int kCtasPerSm = 4;  // stats' and apply's residency (launch bounds): CTAs an SM
+constexpr int kReduceCtasPerSm = 2;  // a reduction's grid, CTAs an SM; backward_reduce's bounds
+constexpr int kMaxSlots = 128;  // channel slots of a tile of the tiled kernels
 constexpr int kUnroll = 4;      // independent vector loads a thread keeps in flight
+constexpr int kPairs = 2;       // (g, x) vector pairs a backward_reduce thread keeps in flight
 
 template <typename T>
 __device__ __forceinline__ float to_float(T v);
@@ -125,7 +131,7 @@ __device__ __forceinline__ Moments moments(const float* sums, int C, int c, floa
   return {mean, var, rsqrtf(__fadd_rn(var, eps))};
 }
 
-// -- the forward pair ----------------------------------------------------------
+// -- the tiled kernels -------------------------------------------------------
 
 // Elements as stored: float, or bfloat16 as its 16 bits.
 __device__ __forceinline__ float widen(float e) { return e; }
@@ -156,7 +162,7 @@ union Pack {
   E e[V];
 };
 
-struct FwdPlan {
+struct TilePlan {
   int N, C, HW, vp;   // samples, channels, positions a channel, vectors a sample
   int tile, rows;     // vectors of a tile's row segment, samples walked in parallel
   int tiles, chunk, chunks;
@@ -169,7 +175,7 @@ struct TileSpan {
   int pos0, npos, c_lo, nslots;
 };
 
-__device__ __forceinline__ TileSpan tile_span(const FwdPlan& pl, int V, int t) {
+__device__ __forceinline__ TileSpan tile_span(const TilePlan& pl, int V, int t) {
   const int v0 = t * pl.tile;
   const int pos0 = v0 * V, npos = min(pl.tile, pl.vp - v0) * V;
   const int c_lo = pos0 / pl.HW;
@@ -240,72 +246,26 @@ __device__ __forceinline__ void segmented_sum(int nseg, const Begin& begin, cons
   }
 }
 
-// s1, s2 of every channel and the count n, in one launch on a (tile,
-// chunk) grid: each CTA's partials, then the last CTA of each ticket group
-// sums its group's.
-template <typename E, int V>
-__global__ void __launch_bounds__(kThreads, kCtasPerSm) stats_kernel(
-    const E* __restrict__ x, FwdPlan pl, float* __restrict__ partial,
-    unsigned* __restrict__ tickets, float* __restrict__ sums) {
-  __shared__ float red[2][kThreads * V];
-  __shared__ float wsum[2 * kThreads / 32];
-  __shared__ bool last;
-  using P = Pack<E, V>;
+// The end of a one-launch reduction on a (tile, chunk) grid, called by
+// every thread of CTA (t, s) once its rows' sums are in red[0], red[1]
+// (row ty's positions at ty * tile * V): the tile's channels summed over
+// its rows and positions into the CTA's partials (q, t, s, slot); then the
+// ticket finds the ticket group's last CTA, which sums the group's
+// partials in a fixed order, calls out(c, a, b) once a channel and resets
+// the ticket.
+template <int V, class Out>
+__device__ __forceinline__ void reduce_tiles(const TilePlan& pl, const TileSpan& sp,
+                                             const float (&red)[2][kThreads * V],
+                                             float* __restrict__ partial,
+                                             unsigned* __restrict__ tickets, const Out& out,
+                                             float* wsum, bool& last) {
   const int t = blockIdx.x, s = blockIdx.y;
-  const TileSpan sp = tile_span(pl, V, t);
-  const int tx = threadIdx.x % pl.tile, ty = threadIdx.x / pl.tile;
-  const bool active = ty < pl.rows && tx * V < sp.npos;
   const int W = pl.tile * V;  // positions of a row of `red`
-  const size_t plane = static_cast<size_t>(pl.vp) * V;
-  if (active) {
-    float a[V], b[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) a[k] = b[k] = 0.f;
-    const int n1 = min(pl.N, (s + 1) * pl.chunk);
-    const size_t step = static_cast<size_t>(pl.rows) * plane;
-    int n = s * pl.chunk + ty;
-    const E* p = x + static_cast<size_t>(n) * plane + sp.pos0 + tx * V;
-    for (; n + (kUnroll - 1) * pl.rows < n1; n += kUnroll * pl.rows) {
-      P v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        v[u].raw = __ldg(reinterpret_cast<const typename P::Raw*>(p + u * step));
-      }
-      p += kUnroll * step;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          const float f = widen(v[u].e[k]);
-          a[k] = __fadd_rn(a[k], f);
-          b[k] = __fadd_rn(b[k], __fmul_rn(f, f));
-        }
-      }
-    }
-    for (; n < n1; n += pl.rows, p += step) {
-      P v;
-      v.raw = __ldg(reinterpret_cast<const typename P::Raw*>(p));
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const float f = widen(v.e[k]);
-        a[k] = __fadd_rn(a[k], f);
-        b[k] = __fadd_rn(b[k], __fmul_rn(f, f));
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      red[0][ty * W + tx * V + k] = a[k];
-      red[1][ty * W + tx * V + k] = b[k];
-    }
-  }
-  __syncthreads();
-
-  // the tile's channels over its rows and positions: partial (q, t, s, slot)
   const size_t qstride = static_cast<size_t>(pl.tiles) * pl.chunks * pl.slots;
   struct Span {
     int n, pa, len;  // items (rows x positions), first position, positions
   };
-  float* out = partial + (static_cast<size_t>(t) * pl.chunks + s) * pl.slots;
+  float* mine = partial + (static_cast<size_t>(t) * pl.chunks + s) * pl.slots;
   segmented_sum(
       sp.nslots,
       [&](int j) {
@@ -321,8 +281,8 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) stats_kernel(
         vb = red[1][at];
       },
       [&](int j, float va, float vb) {
-        out[j] = va;
-        out[qstride + j] = vb;
+        mine[j] = va;
+        mine[qstride + j] = vb;
       },
       wsum);
 
@@ -359,14 +319,159 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) stats_kernel(
         va = __ldcg(partial + at);
         vb = __ldcg(partial + qstride + at);
       },
-      [&](int j, float va, float vb) {
-        const int c = c_first + j;
+      [&](int j, float va, float vb) { out(c_first + j, va, vb); }, wsum);
+  if (threadIdx.x == 0) tickets[g] = 0;
+}
+
+// s1, s2 of every channel and the count n, in one launch on a (tile,
+// chunk) grid: each CTA's partials, then the last CTA of each ticket group
+// sums its group's.
+template <typename E, int V>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm) stats_kernel(
+    const E* __restrict__ x, TilePlan pl, float* __restrict__ partial,
+    unsigned* __restrict__ tickets, float* __restrict__ sums) {
+  __shared__ float red[2][kThreads * V];
+  __shared__ float wsum[2 * kThreads / 32];
+  __shared__ bool last;
+  using P = Pack<E, V>;
+  const int s = blockIdx.y;
+  const TileSpan sp = tile_span(pl, V, blockIdx.x);
+  const int tx = threadIdx.x % pl.tile, ty = threadIdx.x / pl.tile;
+  if (ty < pl.rows && tx * V < sp.npos) {
+    float a[V], b[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) a[k] = b[k] = 0.f;
+    const size_t plane = static_cast<size_t>(pl.vp) * V;
+    const int n1 = min(pl.N, (s + 1) * pl.chunk);
+    const size_t step = static_cast<size_t>(pl.rows) * plane;
+    int n = s * pl.chunk + ty;
+    const E* p = x + static_cast<size_t>(n) * plane + sp.pos0 + tx * V;
+    for (; n + (kUnroll - 1) * pl.rows < n1; n += kUnroll * pl.rows) {
+      P v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        v[u].raw = __ldg(reinterpret_cast<const typename P::Raw*>(p + u * step));
+      }
+      p += kUnroll * step;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float f = widen(v[u].e[k]);
+          a[k] = __fadd_rn(a[k], f);
+          b[k] = __fadd_rn(b[k], __fmul_rn(f, f));
+        }
+      }
+    }
+    for (; n < n1; n += pl.rows, p += step) {
+      P v;
+      v.raw = __ldg(reinterpret_cast<const typename P::Raw*>(p));
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float f = widen(v.e[k]);
+        a[k] = __fadd_rn(a[k], f);
+        b[k] = __fadd_rn(b[k], __fmul_rn(f, f));
+      }
+    }
+    const int at = ty * pl.tile * V + tx * V;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      red[0][at + k] = a[k];
+      red[1][at + k] = b[k];
+    }
+  }
+  __syncthreads();
+  reduce_tiles<V>(
+      pl, sp, red, partial, tickets,
+      [&](int c, float va, float vb) {
         sums[c] = va;
         sums[pl.C + c] = vb;
         if (c == 0) sums[2 * pl.C] = static_cast<float>(static_cast<long long>(pl.N) * pl.HW);
       },
-      wsum);
-  if (threadIdx.x == 0) tickets[g] = 0;
+      wsum, last);
+}
+
+// sum g and sum g * xhat, xhat = (x - mean) * inv, of every channel on
+// stats' design: the CTA's channels' moments once into shared memory, each
+// thread's V positions' in registers, kPairs (g, x) vector pairs in
+// flight, then stats' partials and ticket.
+template <typename E, int V>
+__global__ void __launch_bounds__(kThreads, kReduceCtasPerSm) backward_reduce_kernel(
+    const E* __restrict__ g, const E* __restrict__ x, const float* __restrict__ sums, float eps,
+    TilePlan pl, float* __restrict__ partial, unsigned* __restrict__ tickets,
+    float* __restrict__ gsums) {
+  __shared__ float red[2][kThreads * V];
+  __shared__ float prm[2][kMaxSlots];
+  __shared__ float wsum[2 * kThreads / 32];
+  __shared__ bool last;
+  using P = Pack<E, V>;
+  const int s = blockIdx.y;
+  const TileSpan sp = tile_span(pl, V, blockIdx.x);
+  for (int j = threadIdx.x; j < sp.nslots; j += blockDim.x) {
+    const Moments m = moments(sums, pl.C, sp.c_lo + j, eps);
+    prm[0][j] = m.mean;
+    prm[1][j] = m.inv;
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % pl.tile, ty = threadIdx.x / pl.tile;
+  if (ty < pl.rows && tx * V < sp.npos) {
+    float mu[V], iv[V], a[V], b[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = (sp.pos0 + tx * V + k) / pl.HW - sp.c_lo;
+      mu[k] = prm[0][j];
+      iv[k] = prm[1][j];
+      a[k] = b[k] = 0.f;
+    }
+    auto add = [&](const P& vg, const P& vx) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float f = widen(vg.e[k]);
+        const float xhat = __fmul_rn(__fsub_rn(widen(vx.e[k]), mu[k]), iv[k]);
+        a[k] = __fadd_rn(a[k], f);
+        b[k] = __fadd_rn(b[k], __fmul_rn(f, xhat));
+      }
+    };
+    const size_t plane = static_cast<size_t>(pl.vp) * V;
+    const int n1 = min(pl.N, (s + 1) * pl.chunk);
+    const size_t step = static_cast<size_t>(pl.rows) * plane;
+    int n = s * pl.chunk + ty;
+    const size_t off = static_cast<size_t>(n) * plane + sp.pos0 + tx * V;
+    const E* pg = g + off;
+    const E* px = x + off;
+    for (; n + (kPairs - 1) * pl.rows < n1; n += kPairs * pl.rows) {
+      P vg[kPairs], vx[kPairs];
+#pragma unroll
+      for (int u = 0; u < kPairs; ++u) {
+        vg[u].raw = __ldg(reinterpret_cast<const typename P::Raw*>(pg + u * step));
+        vx[u].raw = __ldg(reinterpret_cast<const typename P::Raw*>(px + u * step));
+      }
+      pg += kPairs * step;
+      px += kPairs * step;
+#pragma unroll
+      for (int u = 0; u < kPairs; ++u) add(vg[u], vx[u]);
+    }
+    for (; n < n1; n += pl.rows, pg += step, px += step) {
+      P vg, vx;
+      vg.raw = __ldg(reinterpret_cast<const typename P::Raw*>(pg));
+      vx.raw = __ldg(reinterpret_cast<const typename P::Raw*>(px));
+      add(vg, vx);
+    }
+    const int at = ty * pl.tile * V + tx * V;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      red[0][at + k] = a[k];
+      red[1][at + k] = b[k];
+    }
+  }
+  __syncthreads();
+  reduce_tiles<V>(
+      pl, sp, red, partial, tickets,
+      [&](int c, float va, float vb) {
+        gsums[c] = va;
+        gsums[pl.C + c] = vb;
+      },
+      wsum, last);
 }
 
 // y = ((x - mean) * inv) * scale + bias on the stats' grid; the chunk-0
@@ -374,7 +479,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) stats_kernel(
 template <typename E, int V>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) apply_kernel(
     const E* __restrict__ x, const float* __restrict__ sums, const float* __restrict__ scale,
-    const float* __restrict__ bias, float eps, FwdPlan pl, E* __restrict__ y,
+    const float* __restrict__ bias, float eps, TilePlan pl, E* __restrict__ y,
     float* __restrict__ mean_out, float* __restrict__ var_out) {
   constexpr int U = V >= 8 ? 2 : kUnroll;  // 8 lanes' parameters take 32 registers
   __shared__ float prm[4][kMaxSlots];
@@ -441,26 +546,40 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) apply_kernel(
   }
 }
 
-template <typename E, int V>
-int launch_stats(const void* x, const FwdPlan& pl, int threads, float* partial,
-                 unsigned* tickets, float* sums, cudaStream_t stream) {
-  stats_kernel<E, V><<<dim3(pl.tiles, pl.chunks), threads, 0, stream>>>(
-      static_cast<const E*>(x), pl, partial, tickets, sums);
-  return cudaGetLastError();
+template <typename E>
+struct Elem {
+  using type = E;
+};
+
+// launch(Elem<E>{}, std::integral_constant<int, V>{}) for the dtype's
+// element as stored (float, or bfloat16 as its 16 bits) and the plan's
+// vector: the kernel variant a plan runs.
+template <class Launch>
+int by_variant(int dtype, int vector, const Launch& launch) {
+  using std::integral_constant;
+  if (dtype == 1) {
+    switch (vector) {
+      case 8: return launch(Elem<unsigned short>{}, integral_constant<int, 8>{});
+      case 4: return launch(Elem<unsigned short>{}, integral_constant<int, 4>{});
+      case 2: return launch(Elem<unsigned short>{}, integral_constant<int, 2>{});
+      default: return launch(Elem<unsigned short>{}, integral_constant<int, 1>{});
+    }
+  }
+  switch (vector) {
+    case 4: return launch(Elem<float>{}, integral_constant<int, 4>{});
+    case 2: return launch(Elem<float>{}, integral_constant<int, 2>{});
+    default: return launch(Elem<float>{}, integral_constant<int, 1>{});
+  }
 }
 
-template <typename E, int V>
-int launch_apply(const void* x, const float* sums, const float* scale, const float* bias,
-                 float eps, const FwdPlan& pl, int threads, void* y, float* mean, float* var,
-                 cudaStream_t stream) {
-  apply_kernel<E, V><<<dim3(pl.tiles, pl.chunks), threads, 0, stream>>>(
-      static_cast<const E*>(x), sums, scale, bias, eps, pl, static_cast<E*>(y), mean, var);
-  return cudaGetLastError();
+// Whether p is a multiple of the plan's vector in bytes.
+bool aligned(const void* p, int dtype, int vector) {
+  return reinterpret_cast<std::uintptr_t>(p) % (vector * (dtype == 1 ? 2 : 4)) == 0;
 }
 
 // The channel slots a tile's partials need: its whole channels where tiles
 // end on channel boundaries, else the most any run of its positions spans.
-int slots_needed(const FwdPlan& pl, int vector) {
+int slots_needed(const TilePlan& pl, int vector) {
   const int positions = pl.tile * vector;
   if (pl.tiles == 1) return pl.C;
   if (positions % pl.HW == 0) return positions / pl.HW;
@@ -471,7 +590,7 @@ int slots_needed(const FwdPlan& pl, int vector) {
 // covering the samples and the plane once, its threads and slots within
 // the kernels' arrays, a ticket a tile only where tiles hold whole
 // channels.
-bool valid(int dtype, int vector, const FwdPlan& pl, int threads) {
+bool valid(int dtype, int vector, const TilePlan& pl, int threads) {
   const int widest = dtype == 1 ? 8 : 4;
   if (vector < 1 || vector > widest || (vector & (vector - 1)) != 0 ||
       (pl.C * pl.HW) % vector != 0 || pl.tile < 1 || pl.rows < 1 || pl.chunk < 1) {
@@ -486,94 +605,12 @@ bool valid(int dtype, int vector, const FwdPlan& pl, int threads) {
          (pl.group >= pl.tiles || (pl.group == 1 && whole));
 }
 
-// -- the backward pair (PR 10's design) -----------------------------------------
+// -- dx on the first design's grid -------------------------------------------
 
 struct Plan {
   int N, C, HW, chunk, S, ntiles;
   __device__ int plane() const { return C * HW; }
 };
-
-// Partial sums, two planes (q = 0, 1) of (tile, channel slot, chunk).
-__device__ __forceinline__ size_t partial_index(const Plan& pl, int q, int t, int slot, int s) {
-  return ((static_cast<size_t>(q) * pl.ntiles + t) * kThreads + slot) * pl.S + s;
-}
-
-// First pass of the backward reduction: (sum g, sum g*xhat) per (tile,
-// channel slot, chunk).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) reduce_partials(
-    const T* __restrict__ a, const T* __restrict__ x, const float* __restrict__ sums, float eps,
-    Plan pl, float* __restrict__ partial) {
-  __shared__ float r0[kThreads], r1[kThreads];
-  const int P = pl.plane();
-  const int t = blockIdx.x, s = blockIdx.y;
-  const int j0 = t * kThreads;
-  const int p = j0 + threadIdx.x;
-  float acc0 = 0.f, acc1 = 0.f;
-  if (p < P) {
-    const Moments m = moments(sums, pl.C, p / pl.HW, eps);
-    const int n0 = s * pl.chunk;
-    const int n1 = min(pl.N, n0 + pl.chunk);
-    const size_t off = static_cast<size_t>(n0) * P + p;
-    const T* pa = a + off;
-    const T* px = x + off;
-#pragma unroll 4
-    for (int i = n0; i < n1; ++i) {
-      const float v = to_float(*pa);
-      pa += P;
-      const float xhat = __fmul_rn(__fsub_rn(to_float(*px), m.mean), m.inv);
-      px += P;
-      acc0 = __fadd_rn(acc0, v);
-      acc1 = __fadd_rn(acc1, __fmul_rn(v, xhat));
-    }
-  }
-  r0[threadIdx.x] = acc0;
-  r1[threadIdx.x] = acc1;
-  __syncthreads();
-  const int jend = min(P, j0 + kThreads);
-  const int c_lo = j0 / pl.HW;
-  const int slots = (jend - 1) / pl.HW - c_lo + 1;
-  if (threadIdx.x < slots) {
-    const int c = c_lo + threadIdx.x;
-    const int q0 = max(j0, c * pl.HW) - j0;
-    const int q1 = min(jend, (c + 1) * pl.HW) - j0;
-    float s0 = 0.f, s1 = 0.f;
-    for (int q = q0; q < q1; ++q) {
-      s0 = __fadd_rn(s0, r0[q]);
-      s1 = __fadd_rn(s1, r1[q]);
-    }
-    partial[partial_index(pl, 0, t, threadIdx.x, s)] = s0;
-    partial[partial_index(pl, 1, t, threadIdx.x, s)] = s1;
-  }
-}
-
-// Second pass: one warp a channel sums its partials, lanes over (tile,
-// chunk) in order, then a fixed shuffle tree; out is (2, C).
-__global__ void __launch_bounds__(kThreads) reduce_final(const float* __restrict__ partial,
-                                                          Plan pl, float* __restrict__ out) {
-  const int c = (blockIdx.x * kThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (c >= pl.C) return;  // whole warps leave together
-  const int t0 = c * pl.HW / kThreads;
-  const int t1 = ((c + 1) * pl.HW - 1) / kThreads;
-  const int items = (t1 - t0 + 1) * pl.S;
-  float s0 = 0.f, s1 = 0.f;
-  for (int it = lane; it < items; it += 32) {
-    const int t = t0 + it / pl.S;
-    const int slot = c - t * kThreads / pl.HW;
-    const int s = it % pl.S;
-    s0 = __fadd_rn(s0, partial[partial_index(pl, 0, t, slot, s)]);
-    s1 = __fadd_rn(s1, partial[partial_index(pl, 1, t, slot, s)]);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    s0 = __fadd_rn(s0, __shfl_xor_sync(0xffffffffu, s0, off));
-    s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, off));
-  }
-  if (lane == 0) {
-    out[c] = s0;
-    out[pl.C + c] = s1;
-  }
-}
 
 // dx = (scale*inv) * ((g - sg/n) - xhat * (sgx/n)), xhat = (x - mean) * inv.
 template <typename T>
@@ -611,19 +648,6 @@ Plan make_plan(int N, int C, int HW, int chunk, int S) {
   return Plan{N, C, HW, chunk, S, (C * HW + kThreads - 1) / kThreads};
 }
 
-template <typename T>
-int backward_reduce(const void* g, const void* x, const float* sums, float eps, const Plan& pl,
-                    float* partial, float* out, cudaStream_t stream) {
-  reduce_partials<T><<<dim3(pl.ntiles, pl.S), kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), sums, eps, pl, partial);
-  int err = cudaGetLastError();
-  if (err != 0) return err;
-  const int warps_per_cta = kThreads / 32;
-  reduce_final<<<(pl.C + warps_per_cta - 1) / warps_per_cta, kThreads, 0, stream>>>(partial, pl,
-                                                                                     out);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -634,74 +658,65 @@ extern "C" {
 // (the stats pass writes this rank's n = N*HW; a mesh sums all three), gsums
 // (2C,).
 //
-// The forward pair takes the plan of ops/bn_cuda.forward_plan: vector,
-// tile, rows, threads, tiles, chunk, chunks, slots, group. partial is
-// 2 * tiles * chunks * slots floats; tickets holds one zero unsigned a
-// ticket group (ceil(tiles / group)), and is zero again when the launch
-// ends. The backward pair takes (chunk, S) of ops/bn_cuda.backward_plan and
-// partial of 2 * ceil(C*HW / 256) * 256 * S floats.
+// The tiled kernels take the plan of ops/bn_cuda.tile_plan: vector, tile,
+// rows, threads, tiles, chunk, chunks, slots, group; x, y and g lie on
+// multiples of the vector's bytes. partial is 2 * tiles * chunks * slots
+// floats; tickets holds one zero unsigned a ticket group (ceil(tiles /
+// group)), and is zero again when the launch ends: launches that share the
+// tickets run in one stream's order. dx takes (chunk, S) of
+// ops/bn_cuda.backward_plan.
 
 int bn_train_stats(const void* x, int dtype, int N, int C, int HW, int vector, int tile,
                    int rows, int threads, int tiles, int chunk, int chunks, int slots, int group,
                    float* partial, unsigned* tickets, float* sums, void* stream) {
-  const FwdPlan pl{N, C, HW, C * HW / vector, tile, rows, tiles, chunk, chunks, slots, group};
-  if (!valid(dtype, vector, pl, threads)) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    switch (vector) {
-      case 8: return launch_stats<unsigned short, 8>(x, pl, threads, partial, tickets, sums, st);
-      case 4: return launch_stats<unsigned short, 4>(x, pl, threads, partial, tickets, sums, st);
-      case 2: return launch_stats<unsigned short, 2>(x, pl, threads, partial, tickets, sums, st);
-      default: return launch_stats<unsigned short, 1>(x, pl, threads, partial, tickets, sums, st);
-    }
+  const TilePlan pl{N, C, HW, C * HW / vector, tile, rows, tiles, chunk, chunks, slots, group};
+  if (!valid(dtype, vector, pl, threads) || !aligned(x, dtype, vector)) {
+    return cudaErrorInvalidValue;
   }
-  switch (vector) {
-    case 4: return launch_stats<float, 4>(x, pl, threads, partial, tickets, sums, st);
-    case 2: return launch_stats<float, 2>(x, pl, threads, partial, tickets, sums, st);
-    default: return launch_stats<float, 1>(x, pl, threads, partial, tickets, sums, st);
-  }
+  return by_variant(dtype, vector, [&](auto elem, auto v) {
+    using E = typename decltype(elem)::type;
+    stats_kernel<E, decltype(v)::value>
+        <<<dim3(pl.tiles, pl.chunks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const E*>(x), pl, partial, tickets, sums);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int bn_train_apply(const void* x, int dtype, const float* sums, const float* scale,
                    const float* bias, float eps, int N, int C, int HW, int vector, int tile,
                    int rows, int threads, int tiles, int chunk, int chunks, int slots, int group,
                    void* y, float* mean, float* var, void* stream) {
-  const FwdPlan pl{N, C, HW, C * HW / vector, tile, rows, tiles, chunk, chunks, slots, group};
-  if (!valid(dtype, vector, pl, threads)) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    switch (vector) {
-      case 8:
-        return launch_apply<unsigned short, 8>(x, sums, scale, bias, eps, pl, threads, y, mean,
-                                               var, st);
-      case 4:
-        return launch_apply<unsigned short, 4>(x, sums, scale, bias, eps, pl, threads, y, mean,
-                                               var, st);
-      case 2:
-        return launch_apply<unsigned short, 2>(x, sums, scale, bias, eps, pl, threads, y, mean,
-                                               var, st);
-      default:
-        return launch_apply<unsigned short, 1>(x, sums, scale, bias, eps, pl, threads, y, mean,
-                                               var, st);
-    }
+  const TilePlan pl{N, C, HW, C * HW / vector, tile, rows, tiles, chunk, chunks, slots, group};
+  if (!valid(dtype, vector, pl, threads) || !aligned(x, dtype, vector) ||
+      !aligned(y, dtype, vector)) {
+    return cudaErrorInvalidValue;
   }
-  switch (vector) {
-    case 4:
-      return launch_apply<float, 4>(x, sums, scale, bias, eps, pl, threads, y, mean, var, st);
-    case 2:
-      return launch_apply<float, 2>(x, sums, scale, bias, eps, pl, threads, y, mean, var, st);
-    default:
-      return launch_apply<float, 1>(x, sums, scale, bias, eps, pl, threads, y, mean, var, st);
-  }
+  return by_variant(dtype, vector, [&](auto elem, auto v) {
+    using E = typename decltype(elem)::type;
+    apply_kernel<E, decltype(v)::value>
+        <<<dim3(pl.tiles, pl.chunks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const E*>(x), sums, scale, bias, eps, pl, static_cast<E*>(y), mean, var);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int bn_train_backward_reduce(const void* g, const void* x, int dtype, const float* sums,
-                             float eps, int N, int C, int HW, int chunk, int S, float* partial,
-                             float* gsums, void* stream) {
-  const Plan pl = make_plan(N, C, HW, chunk, S);
-  auto st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? backward_reduce<__nv_bfloat16>(g, x, sums, eps, pl, partial, gsums, st)
-                    : backward_reduce<float>(g, x, sums, eps, pl, partial, gsums, st);
+                             float eps, int N, int C, int HW, int vector, int tile, int rows,
+                             int threads, int tiles, int chunk, int chunks, int slots, int group,
+                             float* partial, unsigned* tickets, float* gsums, void* stream) {
+  const TilePlan pl{N, C, HW, C * HW / vector, tile, rows, tiles, chunk, chunks, slots, group};
+  if (!valid(dtype, vector, pl, threads) || !aligned(g, dtype, vector) ||
+      !aligned(x, dtype, vector)) {
+    return cudaErrorInvalidValue;
+  }
+  return by_variant(dtype, vector, [&](auto elem, auto v) {
+    using E = typename decltype(elem)::type;
+    backward_reduce_kernel<E, decltype(v)::value>
+        <<<dim3(pl.tiles, pl.chunks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const E*>(g), static_cast<const E*>(x), sums, eps, pl, partial, tickets,
+            gsums);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int bn_train_dx(const void* g, const void* x, int dtype, const float* sums, const float* gsums,
@@ -723,9 +738,16 @@ int bn_train_dx(const void* g, const void* x, int dtype, const float* sums, cons
 }
 
 // The constants ops/bn_cuda.py plans with: threads a CTA (positions of a
-// backward tile), forward CTAs an SM, channel slots of a forward tile.
+// dx tile), stats' and apply's CTAs an SM, channel slots of a tile,
+// backward_reduce's CTAs an SM.
 int bn_train_constant(int which) {
-  return which == 0 ? kThreads : which == 1 ? kCtasPerSm : which == 2 ? kMaxSlots : -1;
+  switch (which) {
+    case 0: return kThreads;
+    case 1: return kCtasPerSm;
+    case 2: return kMaxSlots;
+    case 3: return kReduceCtasPerSm;
+    default: return -1;
+  }
 }
 
 const char* bn_train_error_string(int err) {

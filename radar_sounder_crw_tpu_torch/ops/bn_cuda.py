@@ -20,12 +20,12 @@ float32. Each function takes its plain twin (`*_reference`, the same
 arithmetic in PyTorch ops) for CPU tensors and launches its kernel for CUDA
 tensors; on the card a wrong dtype, layout or device raises, and nothing
 calls `.contiguous()` or the twin. `launches[name]` counts the calls that
-launch kernel `name` (the backward reduction's two passes count as one;
-each forward kernel is one launch, in whichever vector variant its plan
-takes). `forward_plan` and `backward_plan` size the grids: pure functions
-of the shape (and for the forward pair the dtype, the SM count and x's
-alignment), so the CPU tests reach them. The source is built by
-ops/cuda_build.py with the propagation kernels.
+launch kernel `name` (each is one launch, in whichever vector variant its
+plan takes). `tile_plan` sizes the grids of the tiled kernels (stats,
+apply, backward_reduce) and `backward_plan` that of dx: pure functions of
+the shape (and for the tiled kernels the dtype, the SM count and the
+activations' alignment), so the CPU tests reach them. The source is built
+by ops/cuda_build.py with the propagation kernels.
 """
 
 from __future__ import annotations
@@ -43,20 +43,23 @@ cuda_build.register("bn_train")
 
 NAMES = ("bn_stats", "bn_apply", "bn_backward_reduce", "bn_dx")
 # csrc/bn_train.cu's constants, checked against the library at first use
-THREADS = 256  # kThreads: threads of a CTA; positions of a backward tile
-CTAS_PER_SM = 4  # kCtasPerSm: the forward kernels' residency, CTAs an SM in one wave
-STATS_CTAS_PER_SM = 2  # the stats grid: half a wave, so that its last CTAs sum few partials
+THREADS = 256  # kThreads: threads of a CTA; positions of a dx tile
+CTAS_PER_SM = 4  # kCtasPerSm: stats' and apply's residency, CTAs an SM in one wave
+# kReduceCtasPerSm: the grid of a reduction (stats, backward_reduce), CTAs an SM in one
+# wave, few so that its last CTAs sum few partials
+REDUCE_CTAS_PER_SM = 2
 APPLY_VECTORS = 8  # vectors an apply thread walks at least, to hide its CTA's start-up
-MAX_SLOTS = 128  # kMaxSlots: channel slots of a forward tile
-ROW_BYTES = 128  # the least of a sample's row a forward tile reads: one cache line
-TARGET_CTAS = 2048  # the backward kernels' (tile, sample chunk) grid: about this many CTAs
+MAX_SLOTS = 128  # kMaxSlots: channel slots of a tile
+ROW_BYTES = 128  # the least of a sample's row a tile reads: one cache line
+TARGET_CTAS = 2048  # dx's (tile, sample chunk) grid: about this many CTAs
+TILED = ("stats", "apply", "backward_reduce")  # the kernels `tile_plan` plans
 launches = {name: 0 for name in NAMES}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "stats": ([_P, _I] + [_I] * 12 + [_P] * 4, _I),
     "apply": ([_P, _I, _P, _P, _P, _F] + [_I] * 12 + [_P] * 4, _I),
-    "backward_reduce": ([_P, _P, _I, _P, _F] + [_I] * 5 + [_P] * 3, _I),
+    "backward_reduce": ([_P, _P, _I, _P, _F] + [_I] * 12 + [_P] * 4, _I),
     "dx": ([_P, _P, _I, _P, _P, _P, _F] + [_I] * 5 + [_P, _P], _I),
     "constant": ([_I], _I),
     "error_string": ([_I], ctypes.c_char_p),
@@ -64,12 +67,13 @@ SIGNATURES = {
 DIMS = (0, 2, 3)
 
 
-class ForwardPlan(NamedTuple):
-    """The grid of `stats` and `apply` (csrc/bn_train.cu): `tiles` x
-    `chunks` CTAs of `threads` threads. A CTA covers `tile` vectors of
-    `vector` elements of a sample's C*HW plane, `rows` samples at a time,
-    over a chunk of `chunk` samples; its partial sums take `slots` channel
-    slots, and the last CTA of each group of `group` tiles sums them."""
+class TilePlan(NamedTuple):
+    """The grid of a tiled kernel (`stats`, `apply`, `backward_reduce` of
+    csrc/bn_train.cu): `tiles` x `chunks` CTAs of `threads` threads. A CTA
+    covers `tile` vectors of `vector` elements of a sample's C*HW plane,
+    `rows` samples at a time, over a chunk of `chunk` samples; a
+    reduction's partial sums take `slots` channel slots, and the last CTA of
+    each group of `group` tiles sums them."""
 
     vector: int
     tile: int
@@ -83,24 +87,24 @@ class ForwardPlan(NamedTuple):
 
     @property
     def groups(self) -> int:
-        """Ticket counters the stats kernel uses."""
+        """Ticket counters a reduction uses."""
         return -(-self.tiles // self.group)
 
     @property
     def scratch(self) -> int:
-        """float32 partials of the stats kernel: (sum x, sum x*x) a (tile,
-        chunk, channel slot)."""
+        """float32 partials of a reduction (stats, backward_reduce): two sums
+        a (tile, chunk, channel slot)."""
         return 2 * self.tiles * self.chunks * self.slots
 
 
 @functools.lru_cache(maxsize=512)
-def forward_plan(N: int, C: int, HW: int, itemsize: int, sms: int, align: int = 16,
-                 kernel: str = "stats") -> ForwardPlan:
-    """The grid of forward kernel `kernel` ('stats' or 'apply') for N
-    samples of C channels of HW positions, `itemsize` bytes an element (4
-    float32, 2 bfloat16), on a card of `sms` SMs, x's address a multiple of
-    `align` bytes. A pure function of these, so a shape's sums are always
-    taken in one order.
+def tile_plan(N: int, C: int, HW: int, itemsize: int, sms: int, align: int = 16,
+              kernel: str = "stats") -> TilePlan:
+    """The grid of tiled kernel `kernel` (one of TILED) for N samples of C
+    channels of HW positions, `itemsize` bytes an element (4 float32, 2
+    bfloat16), on a card of `sms` SMs, every activation it reads or writes
+    at a multiple of `align` bytes. A pure function of these, so a shape's
+    sums are always taken in one order.
 
     * vector: the most elements, up to 16 bytes, that divide the plane and
       the alignment;
@@ -111,9 +115,12 @@ def forward_plan(N: int, C: int, HW: int, itemsize: int, sms: int, align: int = 
       vectors), one ticket a tile; else THREADS vectors, channels across
       tiles, one ticket for the grid;
     * rows: as many samples as fill THREADS threads;
-    * chunks: for stats STATS_CTAS_PER_SM CTAs an SM, for apply the whole
-      waves of CTAS_PER_SM CTAs an SM nearest APPLY_VECTORS vectors a
-      thread; never more than the samples allow."""
+    * chunks: for the reductions (stats, backward_reduce)
+      REDUCE_CTAS_PER_SM CTAs an SM, for apply the whole waves of
+      CTAS_PER_SM CTAs an SM nearest APPLY_VECTORS vectors a thread; never
+      more than the samples allow."""
+    if kernel not in TILED:
+        raise ValueError(f"tile_plan: kernel {kernel!r} is not one of {TILED}")
     P = C * HW
     vector = 16 // itemsize
     while vector > 1 and (P % vector or align % (vector * itemsize)):
@@ -138,23 +145,22 @@ def forward_plan(N: int, C: int, HW: int, itemsize: int, sms: int, align: int = 
     else:
         slots = min(C, (positions + HW - 2) // HW + 1)
     rows = THREADS // tile
-    if kernel == "stats":
-        ctas = STATS_CTAS_PER_SM * sms
-    else:
+    if kernel == "apply":
         wave = CTAS_PER_SM * sms
         ctas = wave * max(1, round(tiles * -(-N // (APPLY_VECTORS * rows)) / wave))
+    else:
+        ctas = REDUCE_CTAS_PER_SM * sms
     chunks = max(1, min(ctas // tiles, -(-N // rows)))
     chunk = -(-N // chunks)
-    return ForwardPlan(vector=vector, tile=tile, rows=rows, threads=-(-tile * rows // 32) * 32,
-                       tiles=tiles, chunk=chunk, chunks=-(-N // chunk), slots=slots,
-                       group=1 if whole else tiles)
+    return TilePlan(vector=vector, tile=tile, rows=rows, threads=-(-tile * rows // 32) * 32,
+                    tiles=tiles, chunk=chunk, chunks=-(-N // chunk), slots=slots,
+                    group=1 if whole else tiles)
 
 
 def backward_plan(N: int, C: int, HW: int) -> tuple[int, int, int]:
-    """(samples a chunk, chunks, tiles) of the backward kernels' grid for N
+    """(samples a chunk, chunks, tiles) of the dx kernel's grid for N
     samples of C*HW positions: ceil(C*HW / THREADS) tiles by as many chunks
-    as bring the grid to about TARGET_CTAS. A function of the shape alone,
-    so a shape's sums are always taken in the same order."""
+    as bring the grid to about TARGET_CTAS. A function of the shape alone."""
     tiles = -(-(C * HW) // THREADS)
     chunks = min(N, max(1, -(-TARGET_CTAS // tiles)))
     chunk = -(-N // chunks)
@@ -170,10 +176,10 @@ def _library() -> ctypes.CDLL:
     global _constants_checked
     lib = cuda_build.library("bn_train", SIGNATURES)
     if not _constants_checked:
-        got = tuple(lib.bn_train_constant(i) for i in range(3))
-        if got != (THREADS, CTAS_PER_SM, MAX_SLOTS):
-            raise RuntimeError(f"csrc/bn_train.cu's (kThreads, kCtasPerSm, kMaxSlots) = {got} "
-                               f"differ from ops/bn_cuda's")
+        got = tuple(lib.bn_train_constant(i) for i in range(4))
+        if got != (THREADS, CTAS_PER_SM, MAX_SLOTS, REDUCE_CTAS_PER_SM):
+            raise RuntimeError(f"csrc/bn_train.cu's (kThreads, kCtasPerSm, kMaxSlots, "
+                               f"kReduceCtasPerSm) = {got} differ from ops/bn_cuda's")
         _constants_checked = True
     return lib
 
@@ -182,33 +188,44 @@ def _index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
-def _plan_of(x: torch.Tensor, kernel: str) -> ForwardPlan:
+def alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every tensor's
+    address: the alignment `tile_plan` takes for a kernel that reads them
+    all (backward_reduce reads g, whose address autograd chooses, beside
+    x)."""
+    return min([16] + [t.data_ptr() & -t.data_ptr() for t in tensors])
+
+
+def _plan_of(kernel: str, x: torch.Tensor, *others: torch.Tensor) -> TilePlan:
     N, C, H, W = x.shape
-    index, ptr = _index(x.device), x.data_ptr()
+    index = _index(x.device)
     if index not in _sms:
         _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return forward_plan(N, C, H * W, x.element_size(), _sms[index], min(16, ptr & -ptr), kernel)
+    return tile_plan(N, C, H * W, x.element_size(), _sms[index], alignment(x, *others), kernel)
 
 
 def _ticket_counters(device: torch.device, groups: int) -> torch.Tensor:
     """Zeroed int32 counters of `device`, at least `groups` of them; a
-    stats launch leaves them zero. Kept for the process's life: a captured
-    CUDA graph holds their address. Calls on one device share them, so they
-    run in one stream's order (as every kernel of the port does)."""
+    stats or backward_reduce launch leaves them zero. Kept for the
+    process's life: a captured CUDA graph holds their address. Both
+    reductions' calls on one device share them, so they run in one stream's
+    order (as every kernel of the port does: a training step, eager or
+    captured in a graph, launches on one stream)."""
     held = _tickets.setdefault(_index(device), [])
     if not held or held[-1].numel() < groups:
         held.append(torch.zeros(max(groups, 4096), dtype=torch.int32, device=device))
     return held[-1]
 
 
-def stats_buffers(pl: ForwardPlan, C: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stats kernel's scratch (its partials, `pl.scratch` floats) and
-    its output (2C + 1 floats), uninitialised."""
+def reduce_buffers(pl: TilePlan, outputs: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A reduction's scratch (its partials, `pl.scratch` floats) and its
+    output (`outputs` floats: 2C + 1 for stats, 2C for backward_reduce),
+    uninitialised."""
     return (torch.empty(pl.scratch, dtype=torch.float32, device=device),
-            torch.empty(2 * C + 1, dtype=torch.float32, device=device))
+            torch.empty(outputs, dtype=torch.float32, device=device))
 
 
-def _forward_args(N: int, C: int, HW: int, pl: ForwardPlan) -> tuple[int, ...]:
+def _tile_args(N: int, C: int, HW: int, pl: TilePlan) -> tuple[int, ...]:
     return (N, C, HW, pl.vector, pl.tile, pl.rows, pl.threads, pl.tiles, pl.chunk, pl.chunks,
             pl.slots, pl.group)
 
@@ -235,12 +252,6 @@ def _check_vector(name: str, v: torch.Tensor, size: int, device: torch.device) -
             or v.device != device):
         raise ValueError(f"{name}: need a contiguous float32 ({size},) tensor on {device}, got "
                          f"{v.dtype} {tuple(v.shape)} on {v.device}")
-
-
-def _geometry(x: torch.Tensor):
-    """(N, C, HW, the backward plan) of x."""
-    N, C, H, W = x.shape
-    return N, C, H * W, backward_plan(N, C, H * W)
 
 
 def _raise_on(lib, what: str, err: int) -> None:
@@ -303,12 +314,12 @@ def stats(x: torch.Tensor) -> torch.Tensor:
         return stats_reference(x)
     _check_activation("x", x)
     N, C, H, W = x.shape
-    pl = _plan_of(x, "stats")
+    pl = _plan_of("stats", x)
     lib = _library()
-    partial, sums = stats_buffers(pl, C, x.device)
+    partial, sums = reduce_buffers(pl, 2 * C + 1, x.device)
     tickets = _ticket_counters(x.device, pl.groups)
     with cuda_build.on_device(x.device):
-        err = lib.bn_train_stats(x.data_ptr(), _dtype_code(x), *_forward_args(N, C, H * W, pl),
+        err = lib.bn_train_stats(x.data_ptr(), _dtype_code(x), *_tile_args(N, C, H * W, pl),
                                  partial.data_ptr(), tickets.data_ptr(), sums.data_ptr(),
                                  _stream(x.device))
     _raise_on(lib, "bn_stats", err)
@@ -326,13 +337,13 @@ def apply(x, sums, scale, bias, eps: float):
     _check_vector("sums", sums, 2 * C + 1, x.device)
     _check_vector("scale", scale, C, x.device)
     _check_vector("bias", bias, C, x.device)
-    pl = _plan_of(x, "apply")
+    pl = _plan_of("apply", x)
     lib = _library()
     y = torch.empty_like(x)
     mean_var = torch.empty((2, C), dtype=torch.float32, device=x.device)
     with cuda_build.on_device(x.device):
         err = lib.bn_train_apply(x.data_ptr(), _dtype_code(x), sums.data_ptr(), scale.data_ptr(),
-                                 bias.data_ptr(), float(eps), *_forward_args(N, C, H * W, pl),
+                                 bias.data_ptr(), float(eps), *_tile_args(N, C, H * W, pl),
                                  y.data_ptr(), mean_var[0].data_ptr(), mean_var[1].data_ptr(),
                                  _stream(x.device))
     _raise_on(lib, "bn_apply", err)
@@ -346,15 +357,17 @@ def backward_reduce(g, x, sums, eps: float) -> torch.Tensor:
         return backward_reduce_reference(g, x, sums, eps)
     _check_activation("x", x)
     _check_activation("g", g, like=x)
-    N, C, HW, (chunk, S, tiles) = _geometry(x)
+    N, C, H, W = x.shape
     _check_vector("sums", sums, 2 * C + 1, x.device)
+    pl = _plan_of("backward_reduce", x, g)
     lib = _library()
-    partial = torch.empty(2 * tiles * THREADS * S, dtype=torch.float32, device=x.device)
-    gsums = torch.empty(2 * C, dtype=torch.float32, device=x.device)
+    partial, gsums = reduce_buffers(pl, 2 * C, x.device)
+    tickets = _ticket_counters(x.device, pl.groups)
     with cuda_build.on_device(x.device):
         err = lib.bn_train_backward_reduce(g.data_ptr(), x.data_ptr(), _dtype_code(x),
-                                           sums.data_ptr(), float(eps), N, C, HW, chunk, S,
-                                           partial.data_ptr(), gsums.data_ptr(),
+                                           sums.data_ptr(), float(eps),
+                                           *_tile_args(N, C, H * W, pl), partial.data_ptr(),
+                                           tickets.data_ptr(), gsums.data_ptr(),
                                            _stream(x.device))
     _raise_on(lib, "bn_backward_reduce", err)
     launches["bn_backward_reduce"] += 1
@@ -363,12 +376,14 @@ def backward_reduce(g, x, sums, eps: float) -> torch.Tensor:
 
 def dx(g, x, sums, gsums, scale, eps: float) -> torch.Tensor:
     """The input gradient in x's dtype from the forward's sums and the
-    backward's (this rank's or all-reduced)."""
+    backward's (this rank's or all-reduced), on `backward_plan`'s grid."""
     if x.device.type == "cpu":
         return dx_reference(g, x, sums, gsums, scale, eps)
     _check_activation("x", x)
     _check_activation("g", g, like=x)
-    N, C, HW, (chunk, S, _) = _geometry(x)
+    N, C, H, W = x.shape
+    HW = H * W
+    chunk, S, _ = backward_plan(N, C, HW)
     _check_vector("sums", sums, 2 * C + 1, x.device)
     _check_vector("gsums", gsums, 2 * C, x.device)
     _check_vector("scale", scale, C, x.device)

@@ -465,15 +465,16 @@ def test_bn_kernels_equal_their_twins(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", BN_SHAPES)
 def test_bn_forward_repeats_its_bits_eagerly_and_in_a_graph(cuda, shape, dtype):
-    """The forward kernels' sums depend on the shape alone: two `stats`
-    calls on one input are bit-equal, and so are two `apply` calls; a CUDA
-    graph of `stats` + `apply` (its ticket counters reset by each launch)
-    replays bit-equal to the eager calls, twice. One launch a call, the
-    capture included."""
+    """The tiled kernels' sums depend on the shape alone: two `stats` calls
+    on one input are bit-equal, and so are two `apply` calls and two
+    `backward_reduce` calls; a CUDA graph of `stats`, `apply`,
+    `backward_reduce` and `dx` (the two reductions share the ticket
+    counters, each launch resets them) replays bit-equal to the eager calls,
+    twice. One launch a call, the capture included."""
     from radar_sounder_crw_tpu_torch.ops import bn_cuda
 
     C = shape[1]
-    x, _, _ = _bn_inputs(shape, dtype, cuda)
+    x, g, _ = _bn_inputs(shape, dtype, cuda)
     scale = torch.linspace(0.5, 1.5, C, device=cuda)
     bias = torch.linspace(-0.25, 0.25, C, device=cuda)
     sums = bn_cuda.stats(x)
@@ -481,20 +482,62 @@ def test_bn_forward_repeats_its_bits_eagerly_and_in_a_graph(cuda, shape, dtype):
     y, mean, var = bn_cuda.apply(x, sums, scale, bias, 1e-5)
     again = bn_cuda.apply(x, sums, scale, bias, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(again, (y, mean, var)))
+    gsums = bn_cuda.backward_reduce(g, x, sums, 1e-5)
+    assert torch.equal(bn_cuda.backward_reduce(g, x, sums, 1e-5), gsums)
+    dx = bn_cuda.dx(g, x, sums, gsums, scale, 1e-5)
     torch.cuda.synchronize()
     before = dict(bn_cuda.launches)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         g_sums = bn_cuda.stats(x)
         g_out = bn_cuda.apply(x, g_sums, scale, bias, 1e-5)
-    assert bn_cuda.launches["bn_stats"] - before["bn_stats"] == 1
-    assert bn_cuda.launches["bn_apply"] - before["bn_apply"] == 1
+        g_gsums = bn_cuda.backward_reduce(g, x, g_sums, 1e-5)
+        g_dx = bn_cuda.dx(g, x, g_sums, g_gsums, scale, 1e-5)
+    assert {k: bn_cuda.launches[k] - before[k] for k in before} == {
+        "bn_stats": 1, "bn_apply": 1, "bn_backward_reduce": 1, "bn_dx": 1}
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(g_sums, sums)
         assert all(torch.equal(a, b) for a, b in zip(g_out, (y, mean, var)))
-    assert torch.equal(bn_cuda.stats(x), sums)  # the counters are zero after the replays
+        assert torch.equal(g_gsums, gsums) and torch.equal(g_dx, dx)
+    # the counters are zero after the replays
+    assert torch.equal(bn_cuda.stats(x), sums)
+    assert torch.equal(bn_cuda.backward_reduce(g, x, sums, 1e-5), gsums)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_backward_reduce_takes_g_at_another_alignment(cuda, shape, dtype):
+    """g a view one element past a fresh allocation (2 or 4 bytes off the
+    16-byte alignment of x, as an autograd gradient's address may be): the
+    plan takes the smaller alignment, so both inputs are read with narrower
+    vectors, and the sums still equal the twin's bit for bit on the grid
+    (and the aligned call's), within 1e-5 of the sums of magnitudes on real
+    inputs. One launch a call."""
+    from radar_sounder_crw_tpu_torch.ops import bn_cuda
+
+    C = shape[1]
+    x, g, exact = _bn_inputs(shape, dtype, cuda)
+    shifted = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)[1:].view(g.shape)
+    shifted.copy_(g)
+    assert bn_cuda.alignment(x, shifted) == g.element_size() < bn_cuda.alignment(x, g)
+    sums = bn_cuda.stats(x)
+    before = bn_cuda.launches["bn_backward_reduce"]
+    got = bn_cuda.backward_reduce(shifted, x, sums, 1e-5)
+    aligned = bn_cuda.backward_reduce(g, x, sums, 1e-5)
+    want = bn_cuda.backward_reduce_reference(g, x, sums, 1e-5)
+    torch.cuda.synchronize()
+    assert bn_cuda.launches["bn_backward_reduce"] - before == 2
+    if exact:
+        assert torch.equal(got[:C], want[:C]) and torch.equal(got[:C], aligned[:C])
+        assert (got[C:] - want[C:]).abs().max().item() <= 1e-6 * float(sums[-1])
+    m, _, inv = bn_cuda._moments_reference(sums, C, 1e-5)
+    gf = g.float()
+    mags = torch.cat([gf.abs().sum(bn_cuda.DIMS),
+                      (gf * ((x.float() - m) * inv)).abs().sum(bn_cuda.DIMS)])
+    assert _relative_to_magnitudes(got, want, mags) <= 1e-5
+    assert _relative_to_magnitudes(got, aligned, mags) <= 1e-5
 
 
 def test_bn_kernels_reject_bad_inputs(cuda):
