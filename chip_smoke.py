@@ -75,7 +75,9 @@ Phases, one line each, any failure exits non-zero:
      --model 1 --batched --correction --use_last --no_plots
      --allow_untrained` (the synthetic Miguel line, seq_length 100, 16x16
      patches, overlap (8, 0), cxt 100, radius 10, temperature 0.1, knn 20),
-     once as it is and once with --kernel torch: exit 0, `mIoU:` printed,
+     once through the launcher `bash radar_sounder_crw_tpu_torch/launch/
+     launch_test.sh` (this interpreter first on PATH as `python3`) and once
+     directly with --kernel torch: exit 0, `mIoU:` printed,
      >= 99.5 % equal predicted maps, each run's wall time; then the same
      arguments through cli.test_all.main in this process for the launches
      of the default route, prop_seq once per survey call (forward, each
@@ -129,9 +131,20 @@ Phases, one line each, any failure exits non-zero:
      bit (losses, parameters and buffers, Adam's state);
  14-15. train_cli: `python -m radar_sounder_crw_tpu_torch.cli.train
      --dataset 3 --model 1 --no_plots` at its defaults (synthetic SHARAD
-     912 x 8192, 2 epochs of 62 steps), then with --bf16, then with --bf16
-     --steps_per_dispatch 8: exit 0, two epoch lines, `Finished
-     training.`, the wall time;
+     912 x 8192, 2 epochs of 62 steps), through the launcher
+     `launch/launch_train.sh` as in 10, then directly with --bf16, then
+     with --bf16 --steps_per_dispatch 8: exit 0, two epoch lines,
+     `Finished training.`, the wall time;
+ 15b. launch: the sweep launchers `launch/launch_test_batch.sh` (27 runs of
+     cli.test_all over radius x temp x knn) with 10's arguments and
+     `launch/launch_train_batch.sh` (81 runs of cli.train over seq_length x
+     lr x tau x overlap) with `--dataset 3 --model 1 --no_plots --epochs
+     1`, each with a `python3` first on PATH that runs its first call on
+     the card and records the others: exit 0, exactly 27 and 81 calls, the
+     first at radius 5, temp 0.01, knn 5 printing `mIoU:`, the first at
+     seq_length 10, lr 1e-2, tau 1e-1, overlap 8 0 printing a finite epoch
+     loss and `Finished training.` and writing
+     models/crw_s10_lr1e-2_tau1e-1_ov8_0.pt; each first run's wall time;
  16. trained_inference: each trained `.pt` loaded strict and run through
      seed->map on SHARAD window 0 (T = 100, N = 113) on the default route
      (99 prop_step launches) and the plain route: >= 99.5 % equal maps,
@@ -178,7 +191,10 @@ timed run of phase 13 (the main path: 20 bfloat16 steps with
 fused_bn='fused'). A CUDA graph's replay runs its kernels without calling
 their wrappers: phase 13 counts the replays beside the launches. The other
 training phases launch none of the port's kernels: their work runs in
-cuDNN and PyTorch's own kernels.
+cuDNN and PyTorch's own kernels. Commands run as processes of their own
+(the CLIs and launchers of phases 10, 11, 14-15, 15b, 18-19) count in
+those processes, which this one cannot read: phases 10 and 11 repeat
+their command in this process for its launches.
 """
 
 from __future__ import annotations
@@ -188,9 +204,11 @@ import gc
 import io
 import json
 import os
+import shlex
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 from pathlib import Path
@@ -582,8 +600,31 @@ def survey_phase(smi):
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
+LAUNCH = ROOT / "radar_sounder_crw_tpu_torch" / "launch"
 CLI_ARGS = ["--dataset", "1", "--model", "1", "--batched", "--correction", "--use_last",
             "--no_plots", "--allow_untrained"]
+
+
+@contextlib.contextmanager
+def launcher_env(record=False):
+    """The environment to run a launcher of radar_sounder_crw_tpu_torch/launch/
+    in: first on PATH, in a directory under OUT (the checkout, not a TMPDIR
+    that may forbid execution), a `python3` that execs this interpreter (a
+    script, not a symlink: a symlink outside a venv loses the venv). With
+    `record`, every call appends its argv to a file, one line a call, and
+    only the first call runs; the others exit 0. Yields (env, that file)."""
+    OUT.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as bin_dir:
+        calls = Path(bin_dir) / "calls"
+        run = f'exec {shlex.quote(sys.executable)} "$@"\n'
+        if record:
+            rec = shlex.quote(str(calls))
+            run = (f"printf '%s\\n' \"$*\" >> {rec}\n"
+                   f'if [ "$(wc -l < {rec})" -gt 1 ]; then exit 0; fi\n' + run)
+        py = Path(bin_dir) / "python3"
+        py.write_text("#!/bin/sh\n" + run)
+        py.chmod(0o755)
+        yield dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}"), calls
 
 
 def auto_limits_phase():
@@ -648,20 +689,24 @@ def cli_phase():
     from radar_sounder_crw_tpu_torch.cli import test_all
 
     maps, walls = {}, {}
-    for tag, extra in (("auto", []), ("torch", ["--kernel", "torch"])):
+    # the default route through the user's launcher, --kernel torch directly
+    for tag, extra, cmd in (
+            ("auto", [], ["bash", str(LAUNCH / "launch_test.sh")]),
+            ("torch", ["--kernel", "torch"],
+             [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.test_all"])):
         out = OUT / f"cli_{tag}"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.test_all", *CLI_ARGS, *extra,
-             "--output_folder", str(out)],
-            cwd=ROOT, capture_output=True, text=True, timeout=900)
-        walls[tag] = time.perf_counter() - t0
+        with launcher_env() as (env, _):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [*cmd, *CLI_ARGS, *extra, "--output_folder", str(out)], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=900)
+            walls[tag] = time.perf_counter() - t0
         miou = [ln for ln in proc.stdout.splitlines() if ln.startswith("mIoU:")]
         # its own clock, from main's start: inference, then with the report
         elapsed = [ln.rsplit(":", 1)[1].strip() for ln in proc.stdout.splitlines()
                    if ln.startswith("Time elapsed")]
-        phase("cli", f"test_all {' '.join(extra) or '(default kernel)'}: exit {proc.returncode}, "
-              f"{walls[tag]:.2f} s wall, from main's start {' s / '.join(elapsed)} s "
+        phase("cli", f"test_all {' '.join(extra) or '(default kernel)'} via "
+              f"{Path(cmd[-1]).name}: exit {proc.returncode}, {walls[tag]:.2f} s wall, from main's start {' s / '.join(elapsed)} s "
               f"(inference / + metrics), {miou[0] if miou else 'no mIoU line'}")
         if proc.returncode != 0 or not miou:
             raise SystemExit(f"cli.test_all {extra} failed:\n{proc.stdout[-2000:]}\n"
@@ -1280,21 +1325,25 @@ def graph_vs_eager(seq):
 
 def train_cli_phase():
     """Phases 14-15: the user's training command at its defaults, float32
-    and --bf16, as processes from the shell."""
+    (through the launcher launch_train.sh) and --bf16, as processes from the
+    shell."""
     walls, pts = {}, {}
-    for tag, extra in (("f32", []), ("bf16", ["--bf16"]),
-                       ("bf16_k8", ["--bf16", "--steps_per_dispatch", str(K_DISPATCH)])):
+    module = [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.train"]
+    for tag, extra, cmd in (
+            ("f32", [], ["bash", str(LAUNCH / "launch_train.sh")]),
+            ("bf16", ["--bf16"], module),
+            ("bf16_k8", ["--bf16", "--steps_per_dispatch", str(K_DISPATCH)], module)):
         out = OUT / f"train_{tag}"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "radar_sounder_crw_tpu_torch.cli.train", *TRAIN_ARGS, *extra,
-             "--output_folder", str(out)],
-            cwd=ROOT, capture_output=True, text=True, timeout=900)
-        walls[tag] = time.perf_counter() - t0
+        with launcher_env() as (env, _):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [*cmd, *TRAIN_ARGS, *extra, "--output_folder", str(out)], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=900)
+            walls[tag] = time.perf_counter() - t0
         lines = proc.stdout.splitlines()
         epochs = [ln for ln in lines if ln.startswith("Epoch: ")]
-        phase("train_cli", f"cli.train {' '.join(TRAIN_ARGS + extra)}: exit {proc.returncode}, "
-              f"{walls[tag]:.2f} s wall; " + "; ".join(
+        phase("train_cli", f"cli.train {' '.join(TRAIN_ARGS + extra)} via {Path(cmd[-1]).name}: "
+              f"exit {proc.returncode}, {walls[tag]:.2f} s wall; " + "; ".join(
                   ln for ln in lines if ln.startswith(("Number of", "Epoch: ", "Finished"))))
         if (proc.returncode != 0 or "Finished training." not in lines or len(epochs) != 2
                 or not all(np.isfinite(float(ln.split()[3])) for ln in epochs)):
@@ -1304,6 +1353,53 @@ def train_cli_phase():
         pts[tag] = out / "models" / "sharad16_3.pt"
     return {f"cli_train_{tag}_{key}": walls[f"{tag}{suffix}"] for tag in pts
             for key, suffix in (("s", ""), ("epoch_s", "_epoch_s"))}, pts
+
+
+LAUNCH_BATCH = {  # launcher: (its arguments, its number of runs)
+    "launch_test_batch": (CLI_ARGS, 27),
+    "launch_train_batch": (["--dataset", "3", "--model", "1", "--no_plots", "--epochs", "1"], 81),
+}
+
+
+def launch_phase():
+    """Phase 15b: the two sweep launchers, each with a `python3` that runs
+    the first grid point on the card and records every call."""
+    walls, counts = {}, {}
+    for name, (args, runs) in LAUNCH_BATCH.items():
+        out = OUT / name
+        with launcher_env(record=True) as (env, record):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                ["bash", str(LAUNCH / f"{name}.sh"), *args, "--output_folder", str(out)],
+                cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+            # the first run's, with 26 or 80 recorded calls of a few ms each
+            walls[name] = time.perf_counter() - t0
+            calls = record.read_text().splitlines() if record.exists() else []
+        counts[name] = len(calls)
+        lines = proc.stdout.splitlines()
+        if name == "launch_test_batch":
+            first = "--radius 5 --temp 0.01 --knn 5"
+            result = [ln for ln in lines if ln.startswith("mIoU:")]
+            ok = bool(result)
+            for f in ("predicted_map.npy", "predicted_map.pt"):  # 41 MB each: not brought back
+                (out / f).unlink(missing_ok=True)
+        else:
+            first = "--seq_length 10 --lr 1e-2 --tau 1e-1 --overlap 8 0"
+            pt = out / "models" / "crw_s10_lr1e-2_tau1e-1_ov8_0.pt"
+            result = [ln for ln in lines if ln.startswith(("Epoch: ", "Finished"))]
+            epochs = [ln for ln in result if ln.startswith("Epoch: ")]
+            ok = (pt.is_file() and "Finished training." in result and len(epochs) == 1
+                  and np.isfinite(float(epochs[0].split()[3])))
+            result.append(f"wrote {pt.relative_to(OUT)}: {pt.is_file()}")
+            pt.unlink(missing_ok=True)  # 20 MB: not brought back
+        phase("launch", f"{name}.sh {' '.join(args)}: exit {proc.returncode}, {counts[name]} "
+              f"calls (expected {runs}), the first ({first}) run on the card in "
+              f"{walls[name]:.2f} s wall; " + "; ".join(result))
+        if (proc.returncode != 0 or counts[name] != runs or not calls
+                or f" {first} " not in f" {calls[0]} " or not ok):
+            raise SystemExit(f"{name}.sh failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return {**{f"{k}_first_run_s": v for k, v in walls.items()},
+            **{f"{k}_calls": v for k, v in counts.items()}}
 
 
 def trained_inference_phase(pts):
@@ -2076,6 +2172,8 @@ def main() -> int:
     train_times.update(crw_times)
     cli_train_times, pts = train_cli_phase()
     train_times.update(cli_train_times)
+    launch_times = launch_phase()
+    phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in launch_times.items()))
     train_times.update(trained_inference_phase(pts))
     train_times.update(unet_phase(smi))
 
@@ -2182,7 +2280,7 @@ def main() -> int:
         "library_device_ms": bn["totals"]["bf16"][f"{name}_device_library_ms"],
         "library_device_ms_f32": bn["totals"]["f32"][f"{name}_device_library_ms"],
     } for name in BN_KERNELS], "bn_totals": bn["totals"], "times": times, "survey_times": survey_times, "cli_times": cli_times,
-        "train_times": train_times, "data_parallel": parallel}))
+        "train_times": train_times, "launch_times": launch_times, "data_parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
