@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.profiling import span
 from ..utils.resize import resize_nearest
 
 
@@ -26,9 +27,10 @@ def splice_correction(
     pixel_offset: int,
 ) -> np.ndarray:
     """Overwrite the last `pixel_offset` pixel columns of prediction_px with
-    the nearest-upsampled corrected patch map."""
-    out = np.asarray(prediction_px).copy()
-    H = out.shape[0]
-    up = np.asarray(resize_nearest(corrected_patchmap.astype(np.int32), (H, pixel_offset)))
-    out[:, -pixel_offset:] = up
-    return out
+    the nearest-upsampled corrected patch map (span `crw.assemble.splice`)."""
+    with span("crw.assemble.splice"):
+        out = np.asarray(prediction_px).copy()
+        H = out.shape[0]
+        up = np.asarray(resize_nearest(corrected_patchmap.astype(np.int32), (H, pixel_offset)))
+        out[:, -pixel_offset:] = up
+        return out

@@ -51,6 +51,7 @@ from ..ops.xent_metric import column_diffs, horizontality_xent
 from ..parallel.mesh import all_gather, default_mesh, pad_to_multiple, shard_batch
 from ..utils.device import resolve_device
 from ..utils.pos_embed import maybe_pos_embed
+from ..utils.profiling import span
 from ..utils.resize import resize_nearest
 
 
@@ -82,16 +83,18 @@ def _batch_stats(model: nn.Module):
 @torch.no_grad()
 def encode_sequence(model: nn.Module, seq: torch.Tensor, use_pos_embed: bool, bn_train_mode: bool):
     """(T, N, h, w) -> (T, N, C) L2-normalized embeddings, one batched
-    encoder forward over the T*N patches (NCHW, pe channel first)."""
+    encoder forward over the T*N patches (NCHW, pe channel first), in the
+    span `crw.encode`."""
     T, N, H, W = seq.shape
-    x = maybe_pos_embed(seq.reshape(T * N, 1, H, W), use_pos_embed)
-    if bn_train_mode:
-        with _batch_stats(model):
+    with span("crw.encode"):
+        x = maybe_pos_embed(seq.reshape(T * N, 1, H, W), use_pos_embed)
+        if bn_train_mode:
+            with _batch_stats(model):
+                out = model(x)
+        else:
             out = model(x)
-    else:
-        out = model(x)
-    emb = out.reshape(T, N, -1)
-    return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True).clamp_min(1e-12)
+        emb = out.reshape(T, N, -1)
+        return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
 def seed_onehot_from_segmentation(seg_ref: np.ndarray, n_nodes: int, nclasses: int):
@@ -255,8 +258,10 @@ class PropagationPipeline:
         return PropagateResult(prediction=full, xent=cache["xent"], change_idx=None, soft=None)
 
     def prediction_to_pixels(self, prediction: np.ndarray, out_hw: tuple[int, int]):
-        """Upsample the (N, T) patch-grid map to pixels (nearest)."""
-        return resize_nearest(prediction.astype(np.int32), out_hw)
+        """Upsample the (N, T) patch-grid map to pixels (nearest), in the
+        span `crw.assemble.to_pixels`."""
+        with span("crw.assemble.to_pixels"):
+            return resize_nearest(prediction.astype(np.int32), out_hw)
 
     @torch.no_grad()
     def _batched_body(self, seqs: torch.Tensor, seeds: torch.Tensor, compute_xent: bool,

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 NEG_MASKED = -1e10  # radius-mask fill
 NEG_INVALID = -1e12  # empty or not-yet-active ring slots: below every candidate
@@ -255,7 +256,8 @@ def _prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: i
 def _frame_loop(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: int, step):
     """The frame loop over a batched ring: emb (B, T, N, C), seeds (B, N, M)
     -> soft (B, T, N, M), frame 0 the seeds. `step` predicts one frame
-    (`_prop_step_batched` or a kernel with its signature)."""
+    (`_prop_step_batched` or a kernel with its signature). The slot biases
+    and the loop run in the span `crw.frames`."""
     B, T, N, C = emb.shape
     M = seeds.shape[-1]
     dev = emb.device
@@ -266,14 +268,16 @@ def _frame_loop(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: i
     _push_frame(long_mem, feats, labels, 0, emb[:, 0], seeds)
     soft = torch.empty((B, T, N, M), dtype=torch.float32, device=dev)
     soft[:, 0] = seeds
-    # every frame's slot bias at once, one small upload instead of T
-    frames = torch.arange(1, T, device=dev)
-    bias_all = (1.0 - _slot_validity(long_mem, cxt, frames)) * NEG_INVALID
-    for t in range(1, T):
-        nslots = L + min(t, cxt)
-        pred = step(feats, emb[:, t], mask, bias_all[t - 1], labels, temperature, knn, nslots)
-        soft[:, t] = pred
-        _push_frame(long_mem, feats, labels, t, emb[:, t], pred)
+    with span("crw.frames"):
+        # every frame's slot bias at once, one small upload instead of T
+        frames = torch.arange(1, T, device=dev)
+        bias_all = (1.0 - _slot_validity(long_mem, cxt, frames)) * NEG_INVALID
+        for t in range(1, T):
+            nslots = L + min(t, cxt)
+            pred = step(feats, emb[:, t], mask, bias_all[t - 1], labels, temperature, knn,
+                        nslots)
+            soft[:, t] = pred
+            _push_frame(long_mem, feats, labels, t, emb[:, t], pred)
     return soft
 
 

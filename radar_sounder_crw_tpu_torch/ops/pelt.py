@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 def rbf_gram(signal: np.ndarray) -> np.ndarray:
     x = np.asarray(signal, dtype=np.float64)
@@ -106,11 +108,12 @@ def detect_change_point(xent_column_diffs: np.ndarray, pen: float = 5.0) -> int 
     """Change index from the xent difference signal, with the reference's
     post-processing: second-to-last breakpoint + 5, clipped at 0; None when
     detection finds no interior breakpoint or fails
-    (reference: src/utils.py:126-132)."""
-    try:
-        bkps = pelt_rbf(np.asarray(xent_column_diffs), pen=pen)
-        if len(bkps) < 2:
+    (reference: src/utils.py:126-132). Runs in the span `crw.pelt`."""
+    with span("crw.pelt"):
+        try:
+            bkps = pelt_rbf(np.asarray(xent_column_diffs), pen=pen)
+            if len(bkps) < 2:
+                return None
+            return max(0, int(bkps[-2]) + 5)
+        except Exception:
             return None
-        return max(0, int(bkps[-2]) + 5)
-    except Exception:
-        return None

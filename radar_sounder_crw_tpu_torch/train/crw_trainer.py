@@ -47,6 +47,7 @@ from ..ops.crw import crw_loss
 from ..parallel.mesh import all_reduce_grads, default_mesh, shard_batch
 from ..utils.device import parity_mode
 from ..utils.pos_embed import maybe_pos_embed
+from ..utils.profiling import span
 from .step_graph import StepGraph
 
 
@@ -89,12 +90,20 @@ def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
     weights sum to `total`: BatchNorm takes its statistics over the ranks
     (the recompute of remat too, so every rank issues the same
     collectives), the rank's loss is sum(per_item * w) / total, and the
-    gradients and the loss are summed over the ranks before Adam."""
+    gradients and the loss are summed over the ranks before Adam.
+
+    The step's phases run in the spans `crw.encode` (the forward; with
+    remat its recompute too, inside the backward), `crw.loss` (the
+    weighted CRW loss), `crw.backward` (zero_grad and the backward) and
+    `crw.optimizer` (the all-reduce on a mesh and Adam's step). Inside a
+    captured CUDA graph (steps_per_dispatch > 1 on the card) the spans
+    fire while the graph is captured, not when it is replayed."""
 
     def encode(seq):
-        B, T, N, h, w = seq.shape
-        x = maybe_pos_embed(seq.reshape(B * T * N, 1, h, w), use_pos_embed)
-        return model(x).reshape(B, T, N, -1)
+        with span("crw.encode"):
+            B, T, N, h, w = seq.shape
+            x = maybe_pos_embed(seq.reshape(B * T * N, 1, h, w), use_pos_embed)
+            return model(x).reshape(B, T, N, -1)
 
     def no_update_on_recompute():
         return contextlib.nullcontext(), frozen_statistics(model)
@@ -108,14 +117,17 @@ def make_crw_train_step(model, optimizer, tau: float, use_pos_embed: bool,
                                  context_fn=no_update_on_recompute)
             else:
                 emb = encode(seq)
-            per_item, _ = crw_loss(emb, tau, per_item=True)
-            loss = (per_item * weights).sum() / (weights.sum() if total is None else total)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with span("crw.loss"):
+                per_item, _ = crw_loss(emb, tau, per_item=True)
+                loss = (per_item * weights).sum() / (weights.sum() if total is None else total)
+            with span("crw.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
         loss = loss.detach()
-        if mesh is not None:
-            loss = all_reduce_grads(model.parameters(), mesh, loss)
-        optimizer.step()
+        with span("crw.optimizer"):
+            if mesh is not None:
+                loss = all_reduce_grads(model.parameters(), mesh, loss)
+            optimizer.step()
         return loss
 
     return step

@@ -2,11 +2,10 @@ from .device import parity_mode, resolve_device
 from .ndiag import ndiag_matrix
 from .plotting import dataset_cmap, plot_loss_curve, plot_segmentation, plot_xent_heatmap
 from .pos_embed import maybe_pos_embed, pos_embed
-from .profiling import StepTimer, profile_trace, time_fn
+from .profiling import profile_trace, span
 from .resize import resize_bilinear_align_corners, resize_nearest
 
 __all__ = [
-    "StepTimer",
     "dataset_cmap",
     "maybe_pos_embed",
     "ndiag_matrix",
@@ -19,5 +18,5 @@ __all__ = [
     "resize_bilinear_align_corners",
     "resize_nearest",
     "resolve_device",
-    "time_fn",
+    "span",
 ]

@@ -1,67 +1,36 @@
-"""Step timing and traces.
+"""Spans and traces.
 
-The roles of radar_sounder_crw_tpu/utils/profiling.py: `StepTimer` reads
-the clock only after the step's outputs exist on the device (PyTorch
-returns before a CUDA kernel finishes, so an unsynchronised clock measures
-the enqueue), `time_fn` times a function with CUDA events when its result
-lies on a CUDA device, and `profile_trace` records a `torch.profiler`
-Chrome trace.
+`span` marks one layer of the port on a `torch.profiler` recording's
+timeline and costs a flag read when no profiler runs; `profile_trace`
+records a `torch.profiler` Chrome trace (`cli.train --profile_dir`), the
+spans included.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
-def _tensors(obj):
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif isinstance(obj, dict):
-        for v in obj.values():
-            yield from _tensors(v)
-    elif isinstance(obj, (list, tuple)):
-        for v in obj:
-            yield from _tensors(v)
+def span(name: str):
+    """A context that marks `name` (a `crw.*` layer name) on the timeline
+    of a running `torch.profiler` recording, and nothing otherwise.
 
-
-def _synchronize(obj) -> bool:
-    """Wait for every CUDA device holding a tensor of `obj`; True if any."""
-    devices = {t.device for t in _tensors(obj) if t.is_cuda}
-    for d in devices:
-        torch.cuda.synchronize(d)
-    return bool(devices)
-
-
-class StepTimer:
-    """Accumulates per-step wall times, each read after the step's outputs
-    are complete on their device."""
-
-    def __init__(self):
-        self.times: list[float] = []
-        self._t0: float | None = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, *sync_on):
-        """Stop the clock once every tensor of `sync_on` is complete."""
-        if self._t0 is None:
-            raise RuntimeError("StepTimer.stop() before start()")
-        _synchronize(sync_on)
-        self.times.append(time.perf_counter() - self._t0)
-        self._t0 = None
-        return self.times[-1]
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / len(self.times) if self.times else 0.0
-
-    def steps_per_sec(self) -> float:
-        return 1.0 / self.mean if self.mean else 0.0
+    With no profiler running it returns one shared no-op context: it
+    allocates, synchronises and records nothing. Under a profiler it is a
+    FUNCTION-scope record function (`_RecordFunctionFast`): it lands on the
+    kineto timeline, which the device's events share, and unlike
+    `record_function` (a user annotation) it is not mirrored onto the
+    device's timeline. A span never waits for the device and changes
+    nothing of what runs; a caller's span holds the spans of its callees."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
@@ -80,25 +49,3 @@ def profile_trace(logdir: str | None):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def time_fn(fn, *args, warmup: int = 2, iters: int = 10):
-    """(mean seconds per call, last result) of `fn(*args)`: CUDA events
-    around the timed calls when the result lies on a CUDA device, the host
-    clock otherwise."""
-    result = None
-    for _ in range(warmup):
-        result = fn(*args)
-    if _synchronize(result):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            result = fn(*args)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / iters, result
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        result = fn(*args)
-    return (time.perf_counter() - t0) / iters, result
