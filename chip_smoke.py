@@ -18,10 +18,14 @@ Phases, one line each, any failure exits non-zero:
   3. MC3 seed->map at full width (ResNet-10 float32, TF32 off) on a
      synthetic 410 x 3200 radargram, one 32x32 window with overlap (30, 0):
      T = 100 frames of N = 190 nodes, seeded from the first 32 columns,
-     change detection on, then one reseed at frame 40; the CUDA kernel path
-     against the plain path: >= 99.5 % equal maps, equal change_idx;
-  4. times on the card: encode, propagate, seed->map and reseed wall ms,
-     the kernel per launch and per seed->map (CUDA events around eager
+     change detection on, then one reseed at frame 40; the main path
+     (kernel="auto": one prop_seq launch for the seed->map, one for the
+     reseed, no prop_step) and kernel="cuda" by name (one prop_step launch
+     a frame) each against the plain path: >= 99.5 % equal maps, equal
+     change_idx;
+  4. times on the card: encode, propagate, seed->map and reseed wall ms on
+     the main path and on kernel="cuda", prop_step per launch and per
+     seed->map of kernel="cuda" (CUDA events around eager
      calls; per launch also device-only, 50 calls in one CUDA graph), split
      into its tile and merge steps, with the share of the bound, the plain step,
      one torch.matmul of the same affinity product as a yardstick, and the
@@ -86,7 +90,15 @@ Phases, one line each, any failure exits non-zero:
      --dataset 3 --allow_untrained` over stdin: load window 0, seed from the
      ground truth, reseed at frame 40, metrics, info, quit; every reply ok,
      the seed's and the reseed's wall ms; then the same session in this
-     process for its prop_step launches;
+     process for its launches (one prop_seq each for the seed and the
+     reseed, no prop_step);
+ 11b. route_b1: one radargram's propagation under kernel="auto" (one
+     prop_seq launch a call) against kernel="cuda" (one prop_step launch a
+     frame) at T in (2, 16, 57, 112) x N in (50, 113, 190), the cells' cxt
+     100, knn 20 and radius 10, M = 6, on grid inputs: maps equal bit for
+     bit, then per call the elapsed ms of CUDA events around 20 calls and
+     the host's wall ms (median of 20 synchronized calls), each after a
+     warm-up; the table in chiprun_out/route_b1.json;
  12. train_vs_cpu: the CRW trainer (float32, TF32 off) on the card
      against the same trainer on the CPU, one init, one batch schedule
      (B = 2, T = 5, N = 6): one ResNet-10 step with the two-pass batch
@@ -147,7 +159,7 @@ Phases, one line each, any failure exits non-zero:
      models/crw_s10_lr1e-2_tau1e-1_ov8_0.pt; each first run's wall time;
  16. trained_inference: each trained `.pt` loaded strict and run through
      seed->map on SHARAD window 0 (T = 100, N = 113) on the default route
-     (99 prop_step launches) and the plain route: >= 99.5 % equal maps,
+     (one prop_seq launch) and the plain route: >= 99.5 % equal maps,
      equal change indices, the mIoU against the synthetic ground truth;
  17-18. unet: UNet steps at scripts/test_unet.py's width and batch (64
      strips of 912 x 64, 5 classes), float32 and bfloat16, measured as in
@@ -200,6 +212,7 @@ their command in this process for its launches.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -766,14 +779,52 @@ def annotate_phase():
         replies = [session.handle(json.dumps(c)) for c in cmds[1:3]]
     torch.cuda.synchronize()
     launched = dict(labelprop_cuda.launches)
-    T = session.seq.shape[0]
-    want = (T - 1) + (-(-(T - 40) // 16) * 16 - 1)  # seed, then the reseed's padded tail
     phase("annotate", f"in process: seed {replies[0]['ms']} ms, reseed {replies[1]['ms']} ms, "
-          f"launches {launched} (expected prop_step {want})")
-    if (not all(r["ok"] for r in replies) or launched["prop_step"] != want
-            or launched["prop_seq"] or launched["prop_all"]):
-        raise SystemExit("cli.annotate did not launch prop_step once per frame")
+          f"launches {launched} (expected prop_seq 2: the seed, then the reseed)")
+    if (not all(r["ok"] for r in replies) or launched["prop_seq"] != 2
+            or launched["prop_step"] or launched["prop_all"]):
+        raise SystemExit("cli.annotate did not launch prop_seq once per seed and reseed")
     return launched, ms
+
+
+ROUTE_SHAPES = [(T, N) for T in (2, 16, 57, 112) for N in (50, 113, 190)]
+
+
+def route_b1_phase(smi):
+    """Phase 11b: one radargram's propagation through kernel='auto' against
+    kernel='cuda' at each (T, N) of ROUTE_SHAPES; returns the table's rows."""
+    from radar_sounder_crw_tpu_torch.ops import labelprop_cuda
+    from radar_sounder_crw_tpu_torch.ops.labelprop import LabelPropConfig, propagate_labels
+
+    cfg = LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=20)
+    want = {"auto": lambda T: {"prop_seq": 1}, "cuda": lambda T: {"prop_step": T - 1}}
+    rows = []
+    for i, (T, N) in enumerate(ROUTE_SHAPES):
+        emb, seeds = seq_inputs(1, T, N, 128, 6, 100 + i)
+        row, soft = {"T": T, "N": N}, {}
+        for kernel in ("auto", "cuda"):
+            call = functools.partial(propagate_labels, emb[0], seeds[0], cfg, kernel=kernel)
+            reset_launches()
+            soft[kernel] = call()[0]
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in labelprop_cuda.launches.items() if v}
+            if launched != want[kernel](T):
+                raise SystemExit(f"route_b1 T={T} N={N}: kernel={kernel!r} launched {launched}")
+            row[f"{kernel}_event_ms"] = cuda_ms(call, iters=20, warmup=3)
+            row[f"{kernel}_wall_ms"] = wall_ms(call, reps=20)
+        if not torch.equal(soft["auto"], soft["cuda"]):
+            raise SystemExit(f"route_b1 T={T} N={N}: the two routes' soft labels differ")
+        row["wall_ratio"] = row["cuda_wall_ms"] / row["auto_wall_ms"]
+        phase("route_b1", f"{smi} | T={T} N={N}: auto (prop_seq) events "
+              f"{row['auto_event_ms']:.4f} ms wall {row['auto_wall_ms']:.4f} ms; cuda "
+              f"(prop_step x {T - 1}) events {row['cuda_event_ms']:.4f} ms wall "
+              f"{row['cuda_wall_ms']:.4f} ms; cuda / auto wall {row['wall_ratio']:.3f}")
+        rows.append(row)
+    slower = [(r["T"], r["N"]) for r in rows if r["wall_ratio"] < 1]
+    phase("route_b1", f"shapes where kernel='cuda' is faster in wall time: {slower or 'none'}")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "route_b1.json").write_text(json.dumps({"card": smi, "rows": rows}, indent=1))
+    return rows
 
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bfloat16 tensor cores, dense
@@ -1439,7 +1490,8 @@ def trained_inference_phase(pts):
               f"agreement={agree:.5f}, change_idx {res.change_idx} vs {ref.change_idx}; mIoU "
               f"vs the synthetic ground truth {mi:.5f}")
         if (agree < MAP_AGREEMENT or res.change_idx != ref.change_idx
-                or launched["prop_step"] != T - 1 or res.prediction.shape != (N, T)):
+                or launched["prop_seq"] != 1 or launched["prop_step"]
+                or res.prediction.shape != (N, T)):
             raise SystemExit(f"the {tag} trained encoder's seed->map disagrees across routes")
         result[f"trained_{tag}_map_agreement"] = agree
         result[f"trained_{tag}_miou"] = mi
@@ -1871,30 +1923,47 @@ def main() -> int:
     seg_ref2 = seg[: geo.rg_h(), c0 : c0 + geo.w]
     cfg = LabelPropConfig(cxt_size=100, radius=60, temperature=0.01, knn=20)
     model = create_model(1, False, device="cuda", seed=0)
-    pipe = PropagationPipeline(model, cfg, nclasses, kernel="cuda")
+    pipe = PropagationPipeline(model, cfg, nclasses)  # kernel="auto": the main path
+    named = PropagationPipeline(model, cfg, nclasses, kernel="cuda")  # prop_step by name
     plain = PropagationPipeline(model, cfg, nclasses, kernel="torch")
     pipe(seq, seg_ref)  # warm-up: cuDNN algorithm choice, allocator
+    named(seq, seg_ref)
 
     reset_launches()
     res = pipe(seq, seg_ref, detect_change=True, return_soft=True)
     res_re = pipe.reseed(seg_ref2, reseed_frame)
     torch.cuda.synchronize()
     mc3_launches = dict(labelprop_cuda.launches)
-    launches = mc3_launches["prop_step"]
-    want_launches = (T - 1) + (-(-(T - reseed_frame) // 16) * 16 - 1)
-    phase("seed_to_map", f"cuda path: launches {mc3_launches} (expected prop_step "
-          f"{want_launches}), change_idx={res.change_idx}")
-    if launches != want_launches or sum(mc3_launches.values()) != launches:
-        raise SystemExit("the main path did not launch prop_step once per frame")
+    phase("seed_to_map", f"main path (auto): launches {mc3_launches} (expected prop_seq 2: "
+          f"seed->map, reseed), change_idx={res.change_idx}")
+    if (mc3_launches["prop_seq"] != 2 or mc3_launches["prop_step"]
+            or mc3_launches["prop_all"]):
+        raise SystemExit("the main path did not launch prop_seq once per seed->map and reseed")
+
+    reset_launches()
+    res_cuda = named(seq, seg_ref, detect_change=True, return_soft=True)
+    res_cuda_re = named.reseed(seg_ref2, reseed_frame)
+    torch.cuda.synchronize()
+    named_launches = dict(labelprop_cuda.launches)
+    want_named = (T - 1) + (-(-(T - reseed_frame) // 16) * 16 - 1)
+    phase("seed_to_map", f"kernel='cuda' by name: launches {named_launches} (expected "
+          f"prop_step {want_named}), change_idx={res_cuda.change_idx}")
+    if (named_launches["prop_step"] != want_named
+            or sum(named_launches.values()) != want_named):
+        raise SystemExit("kernel='cuda' did not launch prop_step once per frame")
 
     ref = plain(seq, seg_ref, detect_change=True, return_soft=True)
     ref_re = plain.reseed(seg_ref2, reseed_frame)
     agree = float((res.prediction == ref.prediction).mean())
     agree_re = float((res_re.prediction == ref_re.prediction).mean())
+    agree_cuda = float((res_cuda.prediction == ref.prediction).mean())
+    agree_cuda_re = float((res_cuda_re.prediction == ref_re.prediction).mean())
     gt = resize_nearest(seg[: geo.rg_h(), : geo.rg_len()], (N, T))
     acc = float((res.prediction == gt).mean())
-    phase("seed_to_map", f"cuda vs plain: map agreement={agree:.5f} reseed "
+    phase("seed_to_map", f"auto vs plain: map agreement={agree:.5f} reseed "
           f"agreement={agree_re:.5f} change_idx {res.change_idx} vs {ref.change_idx}; "
+          f"cuda vs plain: map agreement={agree_cuda:.5f} reseed agreement="
+          f"{agree_cuda_re:.5f} change_idx {res_cuda.change_idx}; "
           f"accuracy vs ground truth {acc:.4f} (random weights)")
     checks = {
         "prediction shape": res.prediction.shape == (N, T),
@@ -1909,6 +1978,9 @@ def main() -> int:
         "map agreement": agree >= MAP_AGREEMENT,
         "reseed agreement": agree_re >= MAP_AGREEMENT,
         "change_idx equal": res.change_idx == ref.change_idx,
+        "cuda map agreement": agree_cuda >= MAP_AGREEMENT,
+        "cuda reseed agreement": agree_cuda_re >= MAP_AGREEMENT,
+        "cuda change_idx equal": res_cuda.change_idx == ref.change_idx,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1920,12 +1992,16 @@ def main() -> int:
     seed_np, _ = seed_onehot_from_segmentation(seg_ref, N, nclasses)
     times = {
         "encode_ms": wall_ms(lambda: pipe.encode(seq)),
-        "propagate_ms": wall_ms(lambda: propagate_labels(emb, seed_np, cfg, kernel="cuda")),
+        "propagate_ms": wall_ms(lambda: propagate_labels(emb, seed_np, cfg)),
+        "propagate_cuda_ms": wall_ms(lambda: propagate_labels(emb, seed_np, cfg, kernel="cuda")),
         "propagate_plain_ms": wall_ms(lambda: propagate_labels(emb, seed_np, cfg, kernel="torch")),
         "seed_to_map_ms": wall_ms(
             lambda: pipe(seq, seg_ref, detect_change=False, fetch_xent=False)),
         "seed_to_map_detect_ms": wall_ms(lambda: pipe(seq, seg_ref)),
         "reseed_ms": wall_ms(lambda: pipe.reseed(seg_ref2, reseed_frame)),
+        "seed_to_map_cuda_ms": wall_ms(
+            lambda: named(seq, seg_ref, detect_change=False, fetch_xent=False)),
+        "reseed_cuda_ms": wall_ms(lambda: named.reseed(seg_ref2, reseed_frame)),
     }
     K, C, M, knn = 101, 128, nclasses, 20
     feats, query, mask, bias, labels = step_inputs(K, N, C, M, 60, K, 0)
@@ -1940,7 +2016,7 @@ def main() -> int:
     ops, nbytes = step_flops_bytes(K, N, C, M, knn, K)
     bound_ms, bound_by = bound(ops, nbytes)
 
-    # the kernel's share of one seed->map: the 99 launches of the main path,
+    # the kernel's share of one seed->map: the 99 launches of kernel="cuda",
     # each over its valid prefix of 1 + min(t, 100) slots
     nslots_path = [1 + min(t, 100) for t in range(1, T)]
 
@@ -1997,7 +2073,7 @@ def main() -> int:
         "prop_step_device_us_per_call": path_device_ms / len(nslots_path) * 1e3,
         "prop_step_host_us_per_call": (path_wall_ms - path_device_ms) / len(nslots_path) * 1e3,
         "propagate_non_kernel_us_per_frame":
-            (times["propagate_ms"] - path_device_ms) / len(nslots_path) * 1e3,
+            (times["propagate_cuda_ms"] - path_device_ms) / len(nslots_path) * 1e3,
         "plain_step_ms": plain_ms,
         "affinity_matmul_ms": matmul_ms,
     })
@@ -2116,7 +2192,7 @@ def main() -> int:
     agree_r = float((res_r.prediction == res.prediction).mean())
     agree_r_re = float((res_r_re.prediction == res_re.prediction).mean())
     phase("seed_to_map_resident", f"cuda_resident path: launches {resident_mc3} (expected "
-          f"prop_all 2: seed->map, reseed); vs the cuda path: map agreement={agree_r:.5f} "
+          f"prop_all 2: seed->map, reseed); vs the main path: map agreement={agree_r:.5f} "
           f"reseed agreement={agree_r_re:.5f} change_idx {res_r.change_idx} vs "
           f"{res.change_idx}")
     checks = {
@@ -2163,6 +2239,7 @@ def main() -> int:
     cli_launches, cli_times = cli_phase()
     annotate_launches, annotate_ms = annotate_phase()
     cli_times.update(annotate_ms)
+    route_b1 = route_b1_phase(smi)
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in cli_times.items()))
 
     # 12-18. training -------------------------------------------------------------
@@ -2188,7 +2265,8 @@ def main() -> int:
         "route": "cuda",
         "source": "radar_sounder_crw_tpu_torch/csrc/prop_step.cu",
         "replaces": "radar_sounder_crw_tpu/ops/labelprop_pallas.py:466",
-        "launches": launches,
+        "launches": mc3_launches["prop_step"],  # the main path's: none since auto takes prop_seq
+        "launches_named_cuda": named_launches["prop_step"],
         "max_abs_err": mc3_err,
         "ms": kernel_ms,
         "device_ms": kernel_device_ms,
@@ -2221,6 +2299,7 @@ def main() -> int:
         "phase_b_ms": survey_times["prop_seq_phase_b_ms"],
         "launches_cli_test_all": cli_launches["prop_seq"],
         "launches_annotate": annotate_launches["prop_seq"],
+        "launches_seed_to_map": mc3_launches["prop_seq"],
         "launches_auto_limits": auto_launches["prop_seq"],
     }, {
         "name": "prop_all",
@@ -2280,7 +2359,8 @@ def main() -> int:
         "library_device_ms": bn["totals"]["bf16"][f"{name}_device_library_ms"],
         "library_device_ms_f32": bn["totals"]["f32"][f"{name}_device_library_ms"],
     } for name in BN_KERNELS], "bn_totals": bn["totals"], "times": times, "survey_times": survey_times, "cli_times": cli_times,
-        "train_times": train_times, "launch_times": launch_times, "data_parallel": parallel}))
+        "train_times": train_times, "launch_times": launch_times, "data_parallel": parallel,
+        "route_b1": route_b1}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0

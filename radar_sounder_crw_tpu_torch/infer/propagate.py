@@ -13,9 +13,9 @@ the single-radargram path, interactive `reseed`, and full-survey inference
 over many radargrams (`propagate_batch` on host-staged windows,
 `propagate_survey` on windows gathered on the device from a once-uploaded
 radargram). Steps 2, 3 and 6 run on the pipeline's device. On a GPU, 6
-launches the per-frame CUDA kernel once per frame for one radargram, and
-the whole-sequence CUDA kernel once per survey pass (kernel='auto'; a
-named kernel runs on every path).
+launches the whole-sequence CUDA kernel once per seed->map, once per
+reseed and once per survey pass (kernel='auto'; a named kernel runs on
+every path).
 
 `bn_train_mode=True` normalizes with batch statistics, as the upstream test
 scripts that never leave train mode do; the running statistics are left
@@ -108,11 +108,12 @@ def seed_onehot_from_segmentation(seg_ref: np.ndarray, n_nodes: int, nclasses: i
 class PropagationPipeline:
     """An encoder + label-propagation config as a callable seed->map pipeline.
 
-    kernel: 'auto' (on a GPU the per-frame CUDA kernel for one radargram
-    and the whole-sequence kernel for a survey; the plain path on the CPU),
-    'torch', 'cuda', 'cuda_seq' or 'cuda_resident' (see
-    ops/labelprop.propagate_labels). A whole-sequence kernel launches once
-    per seed->map, once per reseed and once per survey pass.
+    kernel: 'auto' (on a GPU the whole-sequence CUDA kernel, for one
+    radargram and for a survey alike; the plain path on the CPU), 'torch',
+    'cuda' (the per-frame kernel, one launch a frame), 'cuda_seq' or
+    'cuda_resident' (see ops/labelprop.propagate_labels). A whole-sequence
+    kernel launches once per seed->map, once per reseed and once per
+    survey pass.
     device: default cuda; raises when CUDA is absent, so a CPU run must say
     device='cpu'."""
 

@@ -25,7 +25,8 @@ routes compute them for a batch of radargrams (`propagate_labels_batched`;
   * kernel="cuda": the same loop, radargram by radargram, with the
     hand-written per-frame kernel `prop_step` (ops/labelprop_cuda.py).
   * kernel="cuda_seq": the hand-written whole-sequence kernel `prop_seq`,
-    one launch for all B x (T-1) frames.
+    one launch for all B x (T-1) frames. 'auto' takes it on a CUDA device
+    for one radargram and for a batch alike (`_route`).
   * kernel="cuda_resident": the hand-written whole-sequence kernel
     `prop_all`, one launch for the batch, with the weight arithmetic of the
     TPU's resident kernel (`_prop_all_step_batched`; its twin is
@@ -256,8 +257,7 @@ def _prop_step(feats, query, mask, slot_bias, labels, temperature: float, knn: i
 def _frame_loop(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: int, step):
     """The frame loop over a batched ring: emb (B, T, N, C), seeds (B, N, M)
     -> soft (B, T, N, M), frame 0 the seeds. `step` predicts one frame
-    (`_prop_step_batched` or a kernel with its signature). The slot biases
-    and the loop run in the span `crw.frames`."""
+    (`_prop_step_batched` or a kernel with its signature)."""
     B, T, N, C = emb.shape
     M = seeds.shape[-1]
     dev = emb.device
@@ -268,16 +268,14 @@ def _frame_loop(emb, seeds, mask, long_mem, cxt: int, temperature: float, knn: i
     _push_frame(long_mem, feats, labels, 0, emb[:, 0], seeds)
     soft = torch.empty((B, T, N, M), dtype=torch.float32, device=dev)
     soft[:, 0] = seeds
-    with span("crw.frames"):
-        # every frame's slot bias at once, one small upload instead of T
-        frames = torch.arange(1, T, device=dev)
-        bias_all = (1.0 - _slot_validity(long_mem, cxt, frames)) * NEG_INVALID
-        for t in range(1, T):
-            nslots = L + min(t, cxt)
-            pred = step(feats, emb[:, t], mask, bias_all[t - 1], labels, temperature, knn,
-                        nslots)
-            soft[:, t] = pred
-            _push_frame(long_mem, feats, labels, t, emb[:, t], pred)
+    # every frame's slot bias at once, one small upload instead of T
+    frames = torch.arange(1, T, device=dev)
+    bias_all = (1.0 - _slot_validity(long_mem, cxt, frames)) * NEG_INVALID
+    for t in range(1, T):
+        nslots = L + min(t, cxt)
+        pred = step(feats, emb[:, t], mask, bias_all[t - 1], labels, temperature, knn, nslots)
+        soft[:, t] = pred
+        _push_frame(long_mem, feats, labels, t, emb[:, t], pred)
     return soft
 
 
@@ -409,16 +407,14 @@ def _validate_cfg(cfg: LabelPropConfig, N: int, grid_hw, device):
 KERNELS = ("torch", "cuda", "cuda_seq", "cuda_resident")
 
 
-def resolve_kernel(kernel: str, device: torch.device, batched: bool = False) -> str:
-    """'auto' -> on a CUDA device 'cuda' (one radargram) or 'cuda_seq' (a
-    batch), on the CPU 'torch'; never 'cuda_resident', which is chosen by
-    name only. Names outside KERNELS raise, and so does a CUDA kernel on a
-    CPU device: nothing switches quietly. The call's own limits can still
-    send 'auto' to the plain route (`_route`)."""
+def resolve_kernel(kernel: str, device: torch.device) -> str:
+    """'auto' -> 'cuda_seq' on a CUDA device, for one radargram and for a
+    batch alike, 'torch' on the CPU; never 'cuda_resident', which is chosen
+    by name only. Names outside KERNELS raise, and so does a CUDA kernel on
+    a CPU device: nothing switches quietly. The call's own limits can still
+    send 'auto' elsewhere (`_route`)."""
     if kernel == "auto":
-        if device.type != "cuda":
-            return "torch"
-        return "cuda_seq" if batched else "cuda"
+        return "cuda_seq" if device.type == "cuda" else "torch"
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r} (expected 'auto' or one of {KERNELS})")
     if kernel.startswith("cuda") and device.type != "cuda":
@@ -426,17 +422,25 @@ def resolve_kernel(kernel: str, device: torch.device, batched: bool = False) -> 
     return kernel
 
 
-def _route(kernel: str, device: torch.device, batched: bool, query_block, T: int, N: int,
-           M: int, knn: int, long_mem: tuple, cxt: int) -> str:
+AUTO_ORDER = ("cuda_seq", "cuda")  # the kernels 'auto' tries on a CUDA device, in order
+
+
+def _route(kernel: str, device: torch.device, query_block, T: int, N: int, M: int, knn: int,
+           long_mem: tuple, cxt: int) -> str:
     """The route of one call, decided before any launch. 'auto' takes the
-    kernel `resolve_kernel` names unless a `query_block` is set or the
-    kernel's limits (knn, classes, shared memory; `labelprop_cuda.fits`)
-    refuse this call's shapes: then the plain route, on the same device,
-    as the JAX package's 'auto' takes XLA where `plan_blocks` finds no
-    plan. A kernel chosen by name is never switched: with a `query_block`
-    it raises here, past its limits its wrapper raises."""
+    first kernel of AUTO_ORDER whose limits (knn, classes, shared memory;
+    `labelprop_cuda.fits`) take this call's shapes: the whole-sequence
+    kernel, else the per-frame one, else the plain route on the same
+    device, as the JAX package's 'auto' takes XLA where `plan_blocks` finds
+    no plan. A `query_block` sends 'auto' to the plain route. A kernel
+    chosen by name is never switched: with a `query_block` it raises here,
+    past its limits its wrapper raises.
+
+    One radargram takes the whole-sequence kernel on purpose, where the JAX
+    package's 'auto' takes its per-frame kernel: on the H100 a launch a
+    frame costs more host time than the frame's device work."""
     auto = kernel == "auto"
-    kernel = resolve_kernel(kernel, device, batched=batched)
+    kernel = resolve_kernel(kernel, device)
     if kernel == "torch":
         return kernel
     if query_block is not None:
@@ -446,12 +450,12 @@ def _route(kernel: str, device: torch.device, batched: bool, query_block, T: int
                 f"not kernel={kernel!r}"
             )
         return "torch"
-    if auto:
-        from .labelprop_cuda import fits
+    if not auto:
+        return kernel
+    from .labelprop_cuda import fits
 
-        if not fits(kernel, device, T, N, M, knn, len(long_mem), cxt):
-            return "torch"
-    return kernel
+    return next((route for route in AUTO_ORDER
+                 if fits(route, device, T, N, M, knn, len(long_mem), cxt)), "torch")
 
 
 def _cuda_step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
@@ -522,9 +526,10 @@ def propagate_labels(
         per frame), 'cuda_seq' (the whole-sequence kernel, one launch; the
         B = 1 view of `propagate_labels_batched`), 'cuda_resident' (the
         whole-sequence kernel with the TPU resident kernel's weight
-        arithmetic, one launch) or 'auto': 'cuda' on a CUDA device where
-        the call fits the kernel's limits (knn <= 256, the class count,
-        shared memory) and no query_block is set, else 'torch'.
+        arithmetic, one launch) or 'auto': on a CUDA device with no
+        query_block set, 'cuda_seq' where the call fits that kernel's limits
+        (knn <= 256, the class count, shared memory), else 'cuda' where it
+        fits that one's, else 'torch'; 'torch' on the CPU.
       device: where to run; default cuda (raises when CUDA is absent).
       query_block: plain route only; when set, each frame's query nodes run
         in sequential blocks of min(query_block, N), bounding the affinity
@@ -540,7 +545,7 @@ def propagate_labels(
     emb = torch.as_tensor(emb, dtype=torch.float32)
     seed = torch.as_tensor(seed_labels, dtype=torch.float32)
     soft, pred = _propagate_labels(emb[None], seed[None], cfg, grid_hw, kernel, None,
-                                   query_block, device, batched=False)
+                                   query_block, device)
     return soft[0], pred[0]
 
 
@@ -552,10 +557,10 @@ def propagate_labels_batched(
     """Propagate B radargrams at once: emb (B, T, N, C), seed_labels
     (B, N, M) -> soft (B, T, N, M), pred (B, T, N) int32.
 
-    kernel: as in `propagate_labels`, except that 'auto' prefers 'cuda_seq'
-    on a CUDA device: one launch of the whole-sequence kernel for the batch
-    ('cuda_resident' likewise launches `prop_all` once for the batch).
-    'cuda' runs the per-frame kernel radargram by radargram.
+    kernel: as in `propagate_labels`: 'auto' is one launch of the
+    whole-sequence kernel for the batch on a CUDA device ('cuda_resident'
+    likewise launches `prop_all` once for the batch). 'cuda' runs the
+    per-frame kernel radargram by radargram.
 
     batch_block: when set, the batch runs in chunks of this size (one
     launch per chunk under 'cuda_seq' and 'cuda_resident'), bounding the
@@ -563,11 +568,13 @@ def propagate_labels_batched(
     radargram and its outputs are dropped. The results equal the unchunked
     call. query_block: as in `propagate_labels`."""
     return _propagate_labels(emb, seed_labels, cfg, grid_hw, kernel, batch_block, query_block,
-                             device, batched=True)
+                             device)
 
 
 def _propagate_labels(emb, seed_labels, cfg: LabelPropConfig, grid_hw, kernel: str,
-                      batch_block, query_block, device, batched: bool):
+                      batch_block, query_block, device):
+    """The entry points' common body: the route, then the propagation in
+    the span `crw.frames`, one span a call whatever the route."""
     device = resolve_device(device)
     emb = torch.as_tensor(emb, dtype=torch.float32, device=device).contiguous()
     seeds = torch.as_tensor(seed_labels, dtype=torch.float32, device=device).contiguous()
@@ -579,10 +586,11 @@ def _propagate_labels(emb, seed_labels, cfg: LabelPropConfig, grid_hw, kernel: s
         if int(query_block) < 1:
             raise ValueError(f"query_block must be >= 1, got {query_block}")
         qb = min(int(query_block), N)
-    kernel = _route(kernel, device, batched, query_block, T, N, seeds.shape[-1], knn, long_mem,
+    kernel = _route(kernel, device, query_block, T, N, seeds.shape[-1], knn, long_mem,
                     cfg.cxt_size)
     if batch_block is None:
-        soft = _propagate(emb, seeds, mask, long_mem, cfg, knn, kernel, qb)
+        with span("crw.frames"):
+            soft = _propagate(emb, seeds, mask, long_mem, cfg, knn, kernel, qb)
         return soft, soft.argmax(dim=-1).to(torch.int32)
     bb = int(batch_block)
     if bb < 1:
@@ -593,8 +601,9 @@ def _propagate_labels(emb, seed_labels, cfg: LabelPropConfig, grid_hw, kernel: s
     if pad:
         emb = torch.cat([emb, emb[:1].expand(pad, *emb.shape[1:])])
         seeds = torch.cat([seeds, seeds[:1].expand(pad, *seeds.shape[1:])])
-    soft = torch.cat([
-        _propagate(emb[i : i + bb], seeds[i : i + bb], mask, long_mem, cfg, knn, kernel, qb)
-        for i in range(0, n_chunks * bb, bb)
-    ])[:B]
+    with span("crw.frames"):
+        soft = torch.cat([
+            _propagate(emb[i : i + bb], seeds[i : i + bb], mask, long_mem, cfg, knn, kernel, qb)
+            for i in range(0, n_chunks * bb, bb)
+        ])[:B]
     return soft, soft.argmax(dim=-1).to(torch.int32)

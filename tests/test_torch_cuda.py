@@ -320,6 +320,31 @@ def test_cuda_resident_route_agrees_with_cuda(cuda):
     assert torch.equal(soft, chunked)
 
 
+@pytest.mark.parametrize("T,N,M,pad", [
+    (112, 50, 6, 15),  # the reseed cell: a 97-frame tail bucketed to 112, zero pad frames
+    (100, 113, 5, 0),  # the seed cell's window
+])
+def test_auto_launches_prop_seq_once_for_one_radargram(cuda, T, N, M, pad):
+    """One radargram under 'auto' at the benchmark cells' shapes (cxt 100,
+    knn 20, radius 10): one prop_seq launch, no prop_step; its map equals
+    kernel='cuda''s, bit for bit on grid inputs (both kernels equal their
+    twin there)."""
+    emb, seeds = _seq_inputs(1, T, N, 128, M, 7, cuda)
+    if pad:
+        emb[:, T - pad:] = 0
+    cfg = LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=20)
+    before = dict(labelprop_cuda.launches)
+    soft, pred = propagate_labels(emb[0], seeds[0], cfg)
+    torch.cuda.synchronize()
+    assert labelprop_cuda.launches["prop_seq"] == before["prop_seq"] + 1
+    assert labelprop_cuda.launches["prop_step"] == before["prop_step"]
+    soft_c, pred_c = propagate_labels(emb[0], seeds[0], cfg, kernel="cuda")
+    assert labelprop_cuda.launches["prop_step"] == before["prop_step"] + T - 1
+    assert torch.equal(pred, pred_c)
+    assert (soft - soft_c).abs().max().item() <= ATOL
+    assert torch.equal(soft, soft_c)
+
+
 def test_auto_past_the_limits_takes_the_plain_route(cuda):
     """knn = 300 is above every kernel's MAX_KNN: 'auto' decides before any
     launch to run the plain route on the card, equal to the CPU's; a kernel

@@ -1,12 +1,16 @@
 """Routing past the kernels' limits, the `query_block` plain step and the
 int32 class map of `propagate_labels(_batched)` (CPU).
 
-* `auto` on a CUDA device takes the plain route where a kernel's limits
-  (knn <= 256, the class count, shared memory; `labelprop_cuda.fits`) refuse
-  the call, decided before any launch; a kernel chosen by name is never
-  switched. The card's answers are faked here by monkeypatching
+* `auto` on a CUDA device takes the whole-sequence kernel for one
+  radargram and for a batch alike, the per-frame kernel where the
+  whole-sequence kernel's limits (knn <= 256, the class count, shared
+  memory; `labelprop_cuda.fits`) refuse the call, and the plain route where
+  both refuse it, decided before any launch; a kernel chosen by name is
+  never switched. The card's answers are faked here by monkeypatching
   `labelprop_cuda._ask`, and the device check is lifted the way
-  tests/test_torch_resident.py lifts it.
+  tests/test_torch_resident.py lifts it. With it lifted,
+  `PropagationPipeline.__call__` and `reseed` reach the whole-sequence
+  wrapper once a call.
 * `query_block` is held to JAX `propagate_labels(kernel='xla',
   query_block=q)` on tie-heavy inputs and on an N the block does not divide:
   maps equal, soft labels to rtol 1e-4 / atol 1e-6 (CPU products sum in
@@ -22,6 +26,7 @@ import torch
 
 from radar_sounder_crw_tpu.ops.labelprop import LabelPropConfig as JaxConfig
 from radar_sounder_crw_tpu.ops.labelprop import propagate_labels as jax_propagate
+from radar_sounder_crw_tpu_torch.infer import PropagationPipeline
 from radar_sounder_crw_tpu_torch.ops import labelprop, labelprop_cuda
 from radar_sounder_crw_tpu_torch.ops.labelprop import (
     LabelPropConfig,
@@ -118,21 +123,29 @@ def test_fits_on_the_cpu_loads_no_library(monkeypatch):
 # -- F1: the route -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("batched,kernel", [(False, "cuda"), (True, "cuda_seq")])
-def test_route_auto_falls_to_the_plain_route_past_the_limits(monkeypatch, batched, kernel):
-    asked = fake_card(monkeypatch)
+def seq_too_big(knn, ns):
+    """The whole-sequence selection's shared memory past the card's limit."""
+    return SMEM_LIMIT + 1
+
+
+@pytest.mark.parametrize("seq_fits,kernel", [(False, "cuda"), (True, "cuda_seq")])
+def test_route_auto_falls_to_the_plain_route_past_the_limits(monkeypatch, seq_fits, kernel):
+    """'auto' takes the whole-sequence kernel, or the per-frame one where the
+    card cannot hold the whole-sequence selection, and the plain route past
+    both kernels' limits."""
+    asked = fake_card(monkeypatch, select_bytes=None if seq_fits else seq_too_big)
     dims = dict(T=10, N=5, M=3, long_mem=(0,), cxt=4)
-    assert _route("auto", CUDA, batched, None, knn=20, **dims) == kernel
+    assert _route("auto", CUDA, None, knn=20, **dims) == kernel
     assert asked  # the card was asked before the decision
-    assert _route("auto", CUDA, batched, None, knn=300, **dims) == "torch"
-    assert _route("auto", CUDA, batched, None, knn=20, **{**dims, "M": 200}) == "torch"
+    assert _route("auto", CUDA, None, knn=300, **dims) == "torch"
+    assert _route("auto", CUDA, None, knn=20, **{**dims, "M": 200}) == "torch"
     # a kernel chosen by name is never switched: its wrapper raises at launch
     for named in ("cuda", "cuda_seq", "cuda_resident"):
-        assert _route(named, CUDA, batched, None, knn=300, **dims) == named
+        assert _route(named, CUDA, None, knn=300, **dims) == named
     with pytest.raises(ValueError, match="knn must lie"):
         labelprop_cuda._check_knn(300)
     # the CPU never reaches the predicate
-    assert _route("auto", torch.device("cpu"), batched, None, knn=20, **dims) == "torch"
+    assert _route("auto", torch.device("cpu"), None, knn=20, **dims) == "torch"
 
 
 def _lift_device_check(monkeypatch, calls):
@@ -141,8 +154,7 @@ def _lift_device_check(monkeypatch, calls):
     their twins."""
     real_fits = labelprop_cuda.fits
     monkeypatch.setattr(labelprop, "resolve_kernel",
-                        lambda kernel, device, batched=False: (
-                            ("cuda_seq" if batched else "cuda") if kernel == "auto" else kernel))
+                        lambda kernel, device: "cuda_seq" if kernel == "auto" else kernel)
     monkeypatch.setattr(labelprop_cuda, "fits",
                         lambda route, device, *dims: real_fits(route, CUDA, *dims))
     monkeypatch.setattr(labelprop_cuda, "prop_seq",
@@ -173,7 +185,67 @@ def test_auto_past_knn_limit_runs_the_plain_route(monkeypatch):
     small = LabelPropConfig(cxt_size=8, radius=20, temperature=0.1, knn=20)
     propagate_labels_batched(emb, seeds, small, device="cpu")
     propagate_labels(emb[0], seeds[0], small, device="cpu")
-    assert calls == ["prop_seq"] + ["prop_step"] * 7
+    assert calls == ["prop_seq", "prop_seq"]
+
+
+@pytest.mark.parametrize("card,want", [
+    ("both fit", ["prop_seq"]),
+    ("whole sequence too big", ["prop_step"] * 7),
+    ("neither fits", []),
+])
+def test_auto_tries_the_whole_sequence_then_the_per_frame_kernel(monkeypatch, card, want):
+    """The fallback order cuda_seq -> cuda -> plain, decided before any
+    launch, at the entry points on grid inputs: one radargram and a batch of
+    two reach the first wrapper that fits (the per-frame one a frame and
+    radargram), and every route equals kernel='torch' bit for bit."""
+    step_bytes = (lambda knn: SMEM_LIMIT + 1) if card == "neither fits" else None
+    fake_card(monkeypatch, step_bytes=step_bytes,
+              select_bytes=None if card == "both fit" else seq_too_big)
+    calls = []
+    _lift_device_check(monkeypatch, calls)
+    emb, seeds = make_inputs(2, 8, 12, 8, 4, seed=9, ties=True, soft_seeds=True)
+    cfg = LabelPropConfig(cxt_size=3, radius=4, temperature=0.1, knn=5, long_mem=(0, 2))
+    soft1, pred1 = propagate_labels(emb[0], seeds[0], cfg, device="cpu")
+    assert calls == want
+    soft, pred = propagate_labels_batched(emb, seeds, cfg, device="cpu")
+    assert calls == want + want * (2 if "prop_step" in want else 1)
+    base, base_pred = propagate_labels_batched(emb, seeds, cfg, kernel="torch", device="cpu")
+    assert torch.equal(soft, base) and torch.equal(pred, base_pred)
+    assert torch.equal(soft1, base[0]) and torch.equal(pred1, base_pred[0])
+
+
+@pytest.mark.parametrize("T,N,cxt,long_mem,frame,bucket", [
+    (12, 10, 4, (0,), 3, 4),  # tail 9 padded to 12, the ring wraps
+    (12, 10, 4, (0, 3), 2, 16),  # tail 10 padded to 16, wraps, two pins
+    (9, 8, 20, (0,), 4, 1),  # no pad, no wrap
+])
+def test_pipeline_seed_and_reseed_launch_the_whole_sequence_kernel(monkeypatch, T, N, cxt,
+                                                                    long_mem, frame, bucket):
+    """`PropagationPipeline.__call__` and `reseed` under 'auto', device check
+    lifted: one whole-sequence wrapper call each and never a per-frame one;
+    maps bit-equal to kernel='torch' on dyadic embeddings."""
+    fake_card(monkeypatch)
+    calls = []
+    _lift_device_check(monkeypatch, calls)
+    M = 4
+    emb = torch.from_numpy(make_inputs(1, T, N, 16, M, seed=T + frame, ties=True)[0][0])
+    rng = np.random.default_rng(frame)
+    seg, seg2 = (rng.integers(0, M, (2 * N, 6)) for _ in range(2))
+    cfg = LabelPropConfig(cxt_size=cxt, radius=3, temperature=0.1, knn=6, long_mem=long_mem)
+    pipes = []
+    for kernel in ("auto", "torch"):
+        pipe = PropagationPipeline(torch.nn.Identity(), cfg, M, kernel=kernel, device="cpu")
+        pipe.encode = lambda seq: emb
+        pipes.append(pipe)
+    seq = np.zeros((T, N, 2, 2), dtype=np.float32)
+    first, want = (p(seq, seg) for p in pipes)
+    assert calls == ["prop_seq"]
+    np.testing.assert_array_equal(first.prediction, want.prediction)
+    assert first.change_idx == want.change_idx
+    got, want = (p.reseed(seg2, frame, bucket) for p in pipes)
+    assert calls == ["prop_seq", "prop_seq"]
+    np.testing.assert_array_equal(got.prediction, want.prediction)
+    np.testing.assert_array_equal(got.prediction[:, :frame], first.prediction[:, :frame])
 
 
 # -- query_block -----------------------------------------------------------------
@@ -250,11 +322,10 @@ def test_query_block_validation(monkeypatch):
     fake_card(monkeypatch)
     for named in ("cuda", "cuda_seq", "cuda_resident"):
         with pytest.raises(ValueError, match="query_block applies to the plain route"):
-            _route(named, CUDA, True, 4, **dims)
-    assert _route("auto", CUDA, False, 4, **dims) == "torch"
-    assert _route("auto", CUDA, True, 4, **dims) == "torch"
+            _route(named, CUDA, 4, **dims)
+    assert _route("auto", CUDA, 4, **dims) == "torch"
     # through the entry point, device check lifted
-    monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device, batched=False: kernel)
+    monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device: kernel)
     with pytest.raises(ValueError, match="query_block applies to the plain route"):
         propagate_labels_batched(emb, seeds, cfg, kernel="cuda_seq", device="cpu",
                                  query_block=2)

@@ -113,7 +113,7 @@ def test_cuda_resident_route_chunks_like_jax(monkeypatch):
     emb, seeds = make_inputs(3, 8, 10, 8, 4, seed=40)
     kw = dict(cxt_size=4, radius=4, temperature=TEMP, knn=4)
     calls = []
-    monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device, batched=False: kernel)
+    monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device: kernel)
     monkeypatch.setattr(labelprop_cuda, "prop_all",
                         lambda *a: calls.append(a[0].shape[0]) or propagate_all_reference(*a))
     cfg = LabelPropConfig(**kw)
@@ -224,7 +224,7 @@ def test_pipeline_paths_reach_prop_all_once_each(survey, monkeypatch):
     ds, ids, refs, jp, tmodel = survey
     calls = []
     for mod in (labelprop, port_propagate):
-        monkeypatch.setattr(mod, "resolve_kernel", lambda kernel, device, batched=False: kernel)
+        monkeypatch.setattr(mod, "resolve_kernel", lambda kernel, device: kernel)
     monkeypatch.setattr(labelprop_cuda, "prop_all",
                         lambda *a: calls.append(a[0].shape[0]) or propagate_all_reference(*a))
     tp = PropagationPipeline(tmodel, LabelPropConfig(**MARGIN), NCLS, kernel="cuda_resident",
@@ -245,12 +245,9 @@ def test_resolve_kernel_names_cuda_resident_only_on_cuda():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     with pytest.raises(ValueError, match="CUDA device"):
         resolve_kernel("cuda_resident", cpu)
-    with pytest.raises(ValueError, match="CUDA device"):
-        resolve_kernel("cuda_resident", cpu, batched=True)
     assert resolve_kernel("cuda_resident", cuda) == "cuda_resident"
-    assert resolve_kernel("cuda_resident", cuda, batched=True) == "cuda_resident"
-    assert {resolve_kernel("auto", d, b) for d in (cpu, cuda) for b in (False, True)} == {
-        "torch", "cuda", "cuda_seq"}
+    # one radargram and a batch alike: the whole-sequence kernel on the card
+    assert {resolve_kernel("auto", d) for d in (cpu, cuda)} == {"torch", "cuda_seq"}
     emb, seeds = make_inputs(1, 3, 4, 8, 2, seed=1)
     with pytest.raises(ValueError, match="CUDA device"):
         labelprop.propagate_labels(emb[0], seeds[0], LabelPropConfig(), kernel="cuda_resident",

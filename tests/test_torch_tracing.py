@@ -1,6 +1,7 @@
 """The port's spans (`utils.profiling.span`) on the CPU: a shared no-op with
 no profiler running; under `torch.profiler` the `crw.*` spans of the
-seed->map call, the CRW step and the host assembly, FUNCTION-scope (not
+seed->map call (one `crw.frames` a propagation call on every route), the
+CRW step and the host assembly, FUNCTION-scope (not
 user annotations, so not mirrored onto a device's timeline) and nested in
 the caller's span; and the same outputs with the profiler on and off."""
 
@@ -18,6 +19,7 @@ from radar_sounder_crw_tpu_torch.infer import (
     splice_correction,
 )
 from radar_sounder_crw_tpu_torch.models import create_model
+from radar_sounder_crw_tpu_torch.ops import labelprop
 from radar_sounder_crw_tpu_torch.ops.labelprop import LabelPropConfig
 from radar_sounder_crw_tpu_torch.train import CRWTrainConfig, CRWTrainer
 from radar_sounder_crw_tpu_torch.utils import span
@@ -73,6 +75,24 @@ def test_seed_call_spans_nest_in_the_caller(window, pipe):
     for name, start, end, user in spans:
         assert not user, name
         assert caller[1] <= start and end <= caller[2], name
+
+
+@pytest.mark.parametrize("kernel,batch_block", [
+    ("torch", None), ("torch", 1), ("cuda", None), ("cuda_seq", None)])
+def test_one_frames_span_a_propagation_call(monkeypatch, kernel, batch_block):
+    """`crw.frames` encloses the whole propagation call on every route, once
+    a call and never nested: the plain route whole and in chunks, the
+    per-frame route over two radargrams, the whole-sequence route (device
+    check lifted: the kernels' wrappers run their twins on CPU tensors)."""
+    monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device: kernel)
+    rng = np.random.default_rng(1)
+    emb = torch.nn.functional.normalize(torch.as_tensor(rng.standard_normal((2, T, 6, 8)),
+                                                        dtype=torch.float32), dim=-1)
+    seeds = torch.eye(NCLS)[rng.integers(0, NCLS, (2, 6))]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        labelprop.propagate_labels_batched(emb, seeds, LP, kernel=kernel,
+                                           batch_block=batch_block, device="cpu")
+    assert [e[0] for e in _crw(prof)] == ["crw.frames"]
 
 
 def test_train_step_spans_in_order():
