@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.resize import resize_bilinear_align_corners
 from .encoders import _init_weights
 from .resnet import BatchNorm, f32_head
@@ -62,14 +63,18 @@ class Up(nn.Module):
             self.conv = DoubleConv(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        if self.bilinear:
-            x = resize_bilinear_align_corners(x, (x.shape[2] * 2, x.shape[3] * 2))
-        else:
-            x = self.up(x)
-        dh = skip.shape[2] - x.shape[2]
-        dw = skip.shape[3] - x.shape[3]
-        x = F.pad(x, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv(torch.cat([skip, x], dim=1))
+        """The upsample, pad and concat run in the span `crw.unet.up`; the
+        DoubleConv after them does not."""
+        with span("crw.unet.up"):
+            if self.bilinear:
+                x = resize_bilinear_align_corners(x, (x.shape[2] * 2, x.shape[3] * 2))
+            else:
+                x = self.up(x)
+            dh = skip.shape[2] - x.shape[2]
+            dw = skip.shape[3] - x.shape[3]
+            x = F.pad(x, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+            x = torch.cat([skip, x], dim=1)
+        return self.conv(x)
 
 
 class OutConv(nn.Module):

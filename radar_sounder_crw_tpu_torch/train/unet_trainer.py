@@ -11,7 +11,11 @@ loss is the per-item mean over H and W, weighted. The shuffle is keyed by
 (seed, epoch index); a partial last batch is a smaller batch (exact
 BatchNorm statistics). With `device_resident` the strips and their integer
 labels are uploaded once and each step rebuilds its one-hot on the device,
-which equals the host batch exactly when the labels are one-hot. On a
+which equals the host batch exactly when the labels are one-hot
+(`gather`). The step's phases run in the spans `crw.unet.gather`,
+`crw.unet.forward`, `crw.unet.loss`, `crw.unet.backward` (zero_grad and
+the backward) and `crw.unet.optimizer` (the all-reduce on a mesh and
+Adam's step). On a
 mesh of several ranks a batch the mesh divides runs sharded (BatchNorm
 statistics over the ranks, gradients and loss summed), a partial one whole
 on every rank; `predict` pads the strips to the mesh, splits them and
@@ -39,6 +43,7 @@ from ..parallel.mesh import (
     shard_batch,
 )
 from ..utils.device import parity_mode
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -146,27 +151,35 @@ class UNetTrainer:
         the loss is the rows' share of the batch's and BatchNorm, gradients
         and loss are reduced over the ranks."""
         self.model.train()
-        weights = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
         mesh = self.mesh if sharded else None
         stats = contextlib.nullcontext() if mesh is None else cross_rank_statistics(
             self.model, mesh)
         with stats:
-            loss = self.loss(self.model(x), onehot, weights,
-                             float(batch_size) if sharded else None)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with span("crw.unet.forward"):
+                logits = self.model(x)
+            with span("crw.unet.loss"):
+                weights = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+                loss = self.loss(logits, onehot, weights,
+                                 float(batch_size) if sharded else None)
+            with span("crw.unet.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
         loss = loss.detach()
-        if mesh is not None:
-            loss = all_reduce_grads(self.model.parameters(), mesh, loss)
-        self.optimizer.step()
+        with span("crw.unet.optimizer"):
+            if mesh is not None:
+                loss = all_reduce_grads(self.model.parameters(), mesh, loss)
+            self.optimizer.step()
         self.step += 1
         return loss
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32)).to(self.device)
 
-    def _resident(self, x, y):
-        """(strips (S, 1, H, W), int labels (S, H, W)) on the device, or None."""
+    def make_resident(self, x, y):
+        """Upload NHWC strips x (S, H, W, 1) and their one-hot labels y
+        (S, H, W, M) once, as (strips (S, 1, H, W), int labels (S, H, W)) on
+        the device, for `gather`; None where the labels are not exactly
+        one-hot or `device_resident` is False (host batches)."""
         cfg = self.config
         if cfg.device_resident is False:
             return None
@@ -180,11 +193,23 @@ class UNetTrainer:
                     "device_resident=True needs exactly one-hot labels (soft labels "
                     "cannot round-trip through the compact int encoding)"
                 )
+            self._resident_data = None  # `gather` must not serve earlier strips
             return None
         x_dev = self._to_device(x).permute(0, 3, 1, 2).contiguous()
         labels_dev = torch.as_tensor(y_arr.argmax(axis=-1)).to(self.device)
         self._resident_data = (x, y, x_dev, labels_dev)
         return x_dev, labels_dev
+
+    def gather(self, ids) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device batch (x (B, 1, H, W), one-hot (B, H, W, M)) of the
+        resident strips `ids` (host indices into the strips `make_resident`
+        uploaded last)."""
+        if self._resident_data is None:
+            raise ValueError("no resident strips: call make_resident first")
+        with span("crw.unet.gather"):
+            x_dev, labels_dev = self._resident_data[2:]
+            ids = torch.as_tensor(ids).to(self.device)
+            return x_dev[ids], F.one_hot(labels_dev[ids], self.config.n_classes).float()
 
     def fit(self, x, y, log: Callable[[str], None] = print) -> list[float]:
         """Epoch loop; on a mesh each rank takes its rows of every batch
@@ -197,7 +222,7 @@ class UNetTrainer:
         steps_per_epoch = max(1, -(-len(x) // cfg.batch_size))
         if self._epoch_idx == 0 and self.step > 0:
             self._epoch_idx = self.step // steps_per_epoch
-        resident = self._resident(x, y)
+        resident = self.make_resident(x, y)
 
         history = []
         for epoch in range(cfg.epochs):
@@ -211,9 +236,7 @@ class UNetTrainer:
                 if sharded:
                     idx = shard_batch(idx, self.mesh)
                 if resident is not None:
-                    ids = torch.as_tensor(idx).to(self.device)
-                    bx = resident[0][ids]
-                    by = F.one_hot(resident[1][ids], cfg.n_classes).float()
+                    bx, by = self.gather(idx)
                 else:
                     bx = self._to_device(x[idx]).permute(0, 3, 1, 2)
                     by = self._to_device(y[idx])
