@@ -169,6 +169,12 @@ def run_corrections(pipe, survey, tasks, seg_list, batched):
             )
 
 
+def save_maps(path: str, maps) -> None:
+    """Save pixel maps stacked, as int32 as the scripts save them (the maps
+    are int8 where the classes fit, prediction_to_pixels)."""
+    np.save(path, np.stack(maps).astype(np.int32))
+
+
 def load_refs_or_fallback(
     input_folder: str, names: list[str], fallback_sgs: list[np.ndarray]
 ):

@@ -20,6 +20,7 @@ from ._qualitative import (
     load_files_or_synth,
     load_refs_or_fallback,
     reverse_pass,
+    save_maps,
     QualitativeSurvey,
 )
 
@@ -112,7 +113,7 @@ def main(args):
             plot_segmentation(merged, os.path.join(args.output_folder, f"im{t}f.png"),
                               dataset=0, aspect=6)
             final_list.append(merged)
-        np.save(os.path.join(args.output_folder, "mc1_res.npy"), np.stack(final_list))
+        save_maps(os.path.join(args.output_folder, "mc1_res.npy"), final_list)
     print("MC1 test done.")
 
 

@@ -20,6 +20,7 @@ from ._qualitative import (
     forward_pass,
     load_files_or_synth,
     reverse_pass,
+    save_maps,
     run_corrections,
 )
 
@@ -122,7 +123,7 @@ def main(args):
         for t, _, _, _ in tasks:
             plot_segmentation(seg_list[t], os.path.join(args.output_folder, f"jim{t}c.png"),
                               dataset=1)
-    np.save(os.path.join(args.output_folder, "mc3_res.npy"), np.stack(seg_list))
+    save_maps(os.path.join(args.output_folder, "mc3_res.npy"), seg_list)
 
     if args.use_last:
         print("Reversed step")
@@ -136,7 +137,7 @@ def main(args):
             plot_segmentation(merged, os.path.join(args.output_folder, f"jim{t}x.png"),
                               dataset=1)
             final_list.append(merged)
-        np.save(os.path.join(args.output_folder, "mc3_resy.npy"), np.stack(final_list))
+        save_maps(os.path.join(args.output_folder, "mc3_resy.npy"), final_list)
         np.save(os.path.join(args.output_folder, "mc3_xenty.npy"), np.stack(xent_list))
     print("MC3 test done.")
 

@@ -18,6 +18,7 @@ from ._qualitative import (
     forward_pass,
     load_files_or_synth,
     run_corrections,
+    save_maps,
     QualitativeSurvey,
 )
 
@@ -115,7 +116,7 @@ def main(args):
         plot_segmentation(seg_list[t], os.path.join(args.output_folder, f"sharad_res{t}.png"),
                           dataset=3)
 
-    np.save(os.path.join(args.output_folder, "s_res.npy"), np.stack(seg_list))
+    save_maps(os.path.join(args.output_folder, "s_res.npy"), seg_list)
     np.save(os.path.join(args.output_folder, "s_xent.npy"), np.stack(xent_list))
     print("SHARAD test done.")
 

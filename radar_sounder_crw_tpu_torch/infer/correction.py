@@ -27,10 +27,12 @@ def splice_correction(
     pixel_offset: int,
 ) -> np.ndarray:
     """Overwrite the last `pixel_offset` pixel columns of prediction_px with
-    the nearest-upsampled corrected patch map (span `crw.assemble.splice`)."""
+    the nearest-upsampled corrected patch map (span `crw.assemble.splice`).
+    The patch map is resized in prediction_px's dtype, so an int8 map
+    stays int8 throughout."""
     with span("crw.assemble.splice"):
         out = np.asarray(prediction_px).copy()
         H = out.shape[0]
-        up = np.asarray(resize_nearest(corrected_patchmap.astype(np.int32), (H, pixel_offset)))
-        out[:, -pixel_offset:] = up
+        patch = corrected_patchmap.astype(out.dtype, copy=False)
+        out[:, -pixel_offset:] = resize_nearest(patch, (H, pixel_offset))
         return out

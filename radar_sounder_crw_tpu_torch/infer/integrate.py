@@ -10,24 +10,52 @@ dataset-specific class priority masks:
     columns with no floating ice (4) anywhere in the forward map.
   * the flat merges of the upstream test_all script, on flattened maps.
 
-A copy of radar_sounder_crw_tpu/infer/integrate.py.
+A copy of radar_sounder_crw_tpu/infer/integrate.py. The line-sized steps
+(the flip back, the flat merge) split the map's rows into bands worked by
+threads: numpy releases the GIL inside them.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import torch
 
 from ..utils.profiling import span
+
+_BAND_BYTES = 1 << 20  # the least of a map a band is worth a thread for
+
+
+def _over_row_bands(fn, shape: tuple, itemsize: int) -> list:
+    """[fn(rows) for rows in bands of the map's rows]: as many bands as
+    torch's intra-op threads, each at least _BAND_BYTES, one thread each;
+    one band on the calling thread where the map is smaller."""
+    rows = shape[0]
+    n = max(1, min(torch.get_num_threads(), rows, int(np.prod(shape)) * itemsize // _BAND_BYTES))
+    edges = np.linspace(0, rows, n + 1).astype(int)
+    bands = [slice(a, b) for a, b in zip(edges[:-1], edges[1:])]
+    if n == 1:
+        return [fn(bands[0])]
+    with ThreadPoolExecutor(n) as pool:
+        return list(pool.map(fn, bands))
 
 
 def reverse_unfold_flip(pred: np.ndarray, rg_len: int) -> np.ndarray:
     """Flip each rg_len-wide block of a concatenated prediction map back to
-    forward orientation (span `crw.assemble.unflip`)."""
+    forward orientation (span `crw.assemble.unflip`): one strided copy, in
+    the map's dtype, by bands of rows."""
     with span("crw.assemble.unflip"):
         H, W = pred.shape
         nblocks = W // rg_len
         blocks = pred[:, : nblocks * rg_len].reshape(H, nblocks, rg_len)
-        return blocks[:, :, ::-1].reshape(H, nblocks * rg_len)
+        out = np.empty(blocks.shape, pred.dtype)
+
+        def flip(rows):
+            out[rows] = blocks[rows, :, ::-1]
+
+        _over_row_bands(flip, out.shape, out.itemsize)
+        return out.reshape(H, nblocks * rg_len)
 
 
 def integrate_bidirectional(
@@ -66,12 +94,27 @@ def integrate_flat_mcords3(
 ) -> np.ndarray:
     """The Miguel merge on flattened maps: reverse bedrock wins where forward
     isn't inland ice AND the reverse column holds no floating ice (span
-    `crw.assemble.merge`)."""
+    `crw.assemble.merge`).
+
+    One copy of forward_flat, in its dtype, merged through its 2-D view
+    by bands of rows: a band's mask (reverse bedrock, and-ed with the
+    (1, W) row of clear columns and the forward guard) and one masked
+    write. The inputs are left as they are."""
     with span("crw.assemble.merge"):
-        out = np.asarray(forward_flat).copy()
-        rev_flat = reverse_map.ravel()
-        mask = (rev_flat == bedrock) & (out != inland_ice_fwd_guard)
-        col_clear = np.all(reverse_map != floating_ice, axis=0)
-        mask &= np.broadcast_to(col_clear[None, :], reverse_map.shape).ravel()
-        out[mask] = bedrock
-        return out
+        rev = np.asarray(reverse_map)
+        src = np.asarray(forward_flat).reshape(rev.shape)
+        out = np.empty(rev.shape, src.dtype)
+        floating = _over_row_bands(lambda rows: (rev[rows] == floating_ice).any(axis=0),
+                                   rev.shape, out.itemsize)
+        clear = ~np.logical_or.reduce(floating)
+
+        def merge(rows):
+            grid = out[rows]
+            grid[...] = src[rows]
+            mask = rev[rows] == bedrock
+            mask &= clear
+            mask &= grid != inland_ice_fwd_guard
+            np.copyto(grid, bedrock, where=mask)
+
+        _over_row_bands(merge, rev.shape, out.itemsize)
+        return out.reshape(-1)

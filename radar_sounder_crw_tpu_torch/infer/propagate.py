@@ -260,9 +260,12 @@ class PropagationPipeline:
 
     def prediction_to_pixels(self, prediction: np.ndarray, out_hw: tuple[int, int]):
         """Upsample the (N, T) patch-grid map to pixels (nearest), in the
-        span `crw.assemble.to_pixels`."""
+        span `crw.assemble.to_pixels`. The pixel map is int8 where the
+        classes fit it (nclasses <= 127, as the batched fetch), else int32:
+        the small patch map is cast first, and the pixels are never widened."""
         with span("crw.assemble.to_pixels"):
-            return resize_nearest(prediction.astype(np.int32), out_hw)
+            dtype = np.int8 if self.nclasses <= 127 else np.int32
+            return resize_nearest(prediction.astype(dtype, copy=False), out_hw)
 
     @torch.no_grad()
     def _batched_body(self, seqs: torch.Tensor, seeds: torch.Tensor, compute_xent: bool,
