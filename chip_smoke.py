@@ -49,14 +49,15 @@ Phases, one line each, any failure exits non-zero:
      reseed through PropagationPipeline(kernel="cuda_resident"): one
      prop_all launch each, >= 99.5 % equal maps with the cuda path, equal
      change_idx, wall times;
-  7. the Miguel survey at full width, as `scripts/test_all.py --batched
-     --correction --correction_tail --use_last` runs it: 63 windows of
+  7. the Miguel survey at full width, as `cli.test_all --correction
+     --correction_tail --use_last` runs it: 63 windows of
      T = 100 frames, N = 50, of the synthetic 410 x 105120 line; forward
      with change detection, the correction tails bucketed by length, the
      reverse pass and the flat MCORDS3 merge. On every pass the
      whole-sequence kernel route against the plain route: >= 99.5 % equal
-     maps, equal change indices; the device-gathered survey equal to
-     propagate_batch on host-staged windows; prop_seq launched once per
+     maps, equal change indices; the forward survey against one
+     `__call__` a window (>= 99.5 % equal maps, equal change indices, the
+     differing entries printed); prop_seq launched once per
      survey call and once per correction bucket; then every pass through
      kernel="cuda_resident": one prop_all launch each, >= 99.5 % equal maps
      with cuda_seq;
@@ -76,16 +77,17 @@ Phases, one line each, any failure exits non-zero:
      ("cuda_seq", "cuda") raises ValueError;
  10. cli: the user's own command at full width,
      `python -m radar_sounder_crw_tpu_torch.cli.test_all --dataset 1
-     --model 1 --batched --correction --use_last --no_plots
+     --model 1 --correction --use_last --no_plots
      --allow_untrained` (the synthetic Miguel line, seq_length 100, 16x16
      patches, overlap (8, 0), cxt 100, radius 10, temperature 0.1, knn 20),
      once through the launcher `bash radar_sounder_crw_tpu_torch/launch/
      launch_test.sh` (this interpreter first on PATH as `python3`) and once
      directly with --kernel torch: exit 0, `mIoU:` printed,
-     >= 99.5 % equal predicted maps, each run's wall time; then the same
-     arguments through cli.test_all.main in this process for the launches
-     of the default route, prop_seq once per survey call (forward, each
-     correction bucket, reverse);
+     >= 99.5 % equal predicted maps, each run's wall time; then the
+     launcher's arguments through cli.test_all.main in this process for the
+     launches of the default route, prop_seq once per survey call (forward,
+     each correction bucket, reverse), as many survey calls as the
+     launcher's run printed correction buckets, plus two;
  11. annotate: `python -m radar_sounder_crw_tpu_torch.cli.annotate
      --dataset 3 --allow_untrained` over stdin: load window 0, seed from the
      ground truth, reseed at frame 40, metrics, info, quit; every reply ok,
@@ -523,10 +525,15 @@ def survey_phase(smi):
         check(f"correction T'={small} ({len(group)} tails)", corrected[small],
               ref_corrected[small])
     check("reverse", rev_preds, ref_rev)
-    staged = pipe.propagate_batch(np.stack([ds[i] for i in ids]), refs)
+    # the survey against its per-radargram form, one __call__ a window
+    calls = [pipe(ds[i], r) for i, r in zip(ids, refs)]
+    one_by_one = np.stack([c.prediction for c in calls])
+    phase("survey", f"forward: survey vs per-radargram __call__ differing entries "
+          f"{int((one_by_one != preds).sum())} of {preds.size}")
+    check("forward", preds, one_by_one, change, [c.change_idx for c in calls],
+          route="survey vs per-radargram __call__")
     checks = {
         "prediction shape": preds.shape == (R, N, T),
-        "device gather == host-staged": np.array_equal(staged, preds),
         "merged map shape": final.shape == (seg.size,),
         "classes in range": 0 <= final.min() and final.max() < nclasses,
     }
@@ -614,8 +621,8 @@ def survey_phase(smi):
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 LAUNCH = ROOT / "radar_sounder_crw_tpu_torch" / "launch"
-CLI_ARGS = ["--dataset", "1", "--model", "1", "--batched", "--correction", "--use_last",
-            "--no_plots", "--allow_untrained"]
+CLI_ARGS = ["--dataset", "1", "--model", "1", "--correction", "--use_last", "--no_plots",
+            "--allow_untrained"]
 
 
 @contextlib.contextmanager
@@ -701,7 +708,7 @@ def cli_phase():
     --kernel torch, then in this process for the launches."""
     from radar_sounder_crw_tpu_torch.cli import test_all
 
-    maps, walls = {}, {}
+    maps, walls, stdout = {}, {}, {}
     # the default route through the user's launcher, --kernel torch directly
     for tag, extra, cmd in (
             ("auto", [], ["bash", str(LAUNCH / "launch_test.sh")]),
@@ -714,6 +721,7 @@ def cli_phase():
                 [*cmd, *CLI_ARGS, *extra, "--output_folder", str(out)], cwd=ROOT, env=env,
                 capture_output=True, text=True, timeout=900)
             walls[tag] = time.perf_counter() - t0
+        stdout[tag] = proc.stdout
         miou = [ln for ln in proc.stdout.splitlines() if ln.startswith("mIoU:")]
         # its own clock, from main's start: inference, then with the report
         elapsed = [ln.rsplit(":", 1)[1].strip() for ln in proc.stdout.splitlines()
@@ -739,12 +747,14 @@ def cli_phase():
     for f in ("predicted_map.npy", "predicted_map.pt"):
         (out / f).unlink()
     per_pass = [c["prop_seq"] for c in per_call]
-    phase("cli", f"default route in process: launches {launched}, prop_seq per survey call "
-          f"{per_pass} (forward, {len(per_call) - 2} correction buckets, reverse)")
-    if (len(per_call) < 2 or per_pass != [1] * len(per_call)
+    buckets = sum(ln.startswith("Correction batch") for ln in stdout["auto"].splitlines())
+    phase("cli", f"launch_test.sh's arguments in process: launches {launched}, prop_seq per "
+          f"survey call {per_pass} (forward, {len(per_call) - 2} correction buckets, reverse; "
+          f"the launcher's run printed {buckets} buckets)")
+    if (len(per_call) != 2 + buckets or per_pass != [1] * len(per_call)
             or launched["prop_seq"] != len(per_call) or launched["prop_step"]
             or launched["prop_all"]):
-        raise SystemExit("cli.test_all --batched did not launch prop_seq once per survey call")
+        raise SystemExit("cli.test_all did not launch prop_seq once per survey call")
     return launched, {"cli_test_all_s": walls["auto"], "cli_test_all_torch_s": walls["torch"],
                       "cli_map_agreement": agree}
 

@@ -1,8 +1,8 @@
 """Shared helpers of the file-driven qualitative entry points (test_mc1 /
 test_mc3 / test_sharad; the port of scripts/_qualitative.py): file loading
 with synthetic stand-ins, and the forward / reverse / correction
-propagation passes in both their sequential and `--batched` (one survey
-call per pass) forms."""
+propagation passes, each one survey call (the JAX scripts' batched
+form, whose maps equal their per-radargram form's)."""
 
 from __future__ import annotations
 
@@ -24,13 +24,12 @@ def window_radargram(rg: np.ndarray, patch, overlap) -> np.ndarray:
 
 
 class QualitativeSurvey:
-    """The qualitative scripts' radargram set, usable by BOTH paths:
-    `seqs` are the host-windowed (T, N, h, w) arrays the sequential
-    per-radargram loop consumes, and `source`/`ids` expose the same
-    radargrams as a resident-gatherable stack so the --batched passes
-    upload each radargram ONCE and gather windows on the device
-    (PropagationPipeline.propagate_survey) instead of uploading the
-    ~h/(h-oh)-times-larger host window stacks."""
+    """The qualitative scripts' radargram set: `seqs` are the host-windowed
+    (T, N, h, w) arrays (the entry points read the window shape from
+    them), and `source`/`ids` expose the same radargrams as a
+    resident-gatherable stack, so the passes upload each radargram ONCE
+    and gather windows on the device (PropagationPipeline.propagate_survey)
+    instead of uploading the ~h/(h-oh)-times-larger host window stacks."""
 
     def __init__(self, rgs: list, patch, overlap):
         self.seqs = [window_radargram(r, patch, overlap) for r in rgs]
@@ -78,95 +77,58 @@ def load_files_or_synth(
     return rgs, sgs
 
 
-def forward_pass(pipe, survey, fwd_refs, out_hw, batched, detect_change=False):
+def forward_pass(pipe, survey, fwd_refs, out_hw, detect_change=False):
     """Forward propagation of every radargram -> (seg_list, xent_list,
-    change_list). survey: a QualitativeSurvey. Batched = ONE survey call
-    over the radargram axis with DEVICE-RESIDENT window gathering
-    (xent maps returned from the same program; change detection on the
-    batched signal when requested); sequential = the reference-style
-    per-radargram loop. change_list is [] when detect_change is False."""
-    seqs = survey.seqs
-    seg_list, xent_list, change_list = [], [], []
-    if batched:
-        if detect_change:
-            preds, change_list, xents = pipe.propagate_survey(
-                survey.source, survey.ids, fwd_refs,
-                detect_change=True, return_xent=True,
-            )
-        else:
-            preds, xents = pipe.propagate_survey(
-                survey.source, survey.ids, fwd_refs, return_xent=True
-            )
-        for t in range(len(seqs)):
-            seg_list.append(pipe.prediction_to_pixels(preds[t], out_hw))
-            xent_list.append(np.asarray(xents[t]))
+    change_list): ONE survey call over the radargram axis with
+    DEVICE-RESIDENT window gathering (xent maps returned from the same
+    program; change detection on the batched signal when requested).
+    survey: a QualitativeSurvey. change_list is [] when detect_change is
+    False."""
+    if detect_change:
+        preds, change_list, xents = pipe.propagate_survey(
+            survey.source, survey.ids, fwd_refs, detect_change=True, return_xent=True,
+        )
     else:
-        for t, seq in enumerate(seqs):
-            print("Radargram", t)
-            res = pipe(seq, fwd_refs[t])
-            seg_list.append(pipe.prediction_to_pixels(res.prediction, out_hw))
-            xent_list.append(res.xent)
-            if detect_change:
-                change_list.append(res.change_idx)
-    return seg_list, xent_list, change_list
+        preds, xents = pipe.propagate_survey(
+            survey.source, survey.ids, fwd_refs, return_xent=True
+        )
+        change_list = []
+    seg_list = [pipe.prediction_to_pixels(p, out_hw) for p in preds]
+    return seg_list, list(xents), change_list
 
 
-def reverse_pass(pipe, survey, rev_refs, out_hw, batched):
+def reverse_pass(pipe, survey, rev_refs, out_hw):
     """Reversed-seed propagation -> per-radargram pixel maps, already
     flipped back to original trace order (reference: test_mc1.py:120).
-    Batched gathers from the already-resident radargrams and time-flips on
+    Gathers from the already-resident radargrams and time-flips on
     device."""
-    seqs = survey.seqs
-    rev_list = []
-    if batched:
-        rpreds = pipe.propagate_survey(
-            survey.source, survey.ids, rev_refs, use_last=True
-        )
-        for t in range(len(seqs)):
-            rev_list.append(
-                pipe.prediction_to_pixels(rpreds[t], out_hw)[:, ::-1]
-            )
-    else:
-        for t, seq in enumerate(seqs):
-            print("Radargram", t)
-            res = pipe(seq, rev_refs[t], use_last=True)
-            rev_list.append(
-                pipe.prediction_to_pixels(res.prediction, out_hw)[:, ::-1]
-            )
-    return rev_list
+    rpreds = pipe.propagate_survey(survey.source, survey.ids, rev_refs, use_last=True)
+    return [pipe.prediction_to_pixels(p, out_hw)[:, ::-1] for p in rpreds]
 
 
-def run_corrections(pipe, survey, tasks, seg_list, batched):
+def run_corrections(pipe, survey, tasks, seg_list):
     """Re-propagate each task's frame tail and splice it into seg_list (in
     place). tasks: (t, pixel_offset, change_idx, seg_ref) per radargram with
     a change point — the tail is frames [change_idx:] (reference:
-    scripts/test/test_mc3.py:126). Batched groups tasks by tail length — one
-    survey call per distinct T' (the same bucketing as test_all --batched),
-    windows gathered on the device
-    at frame offset change_idx from the resident radargrams."""
+    scripts/test/test_mc3.py:126). Tasks are grouped by tail length — one
+    survey call per distinct T' (the same bucketing as cli.test_all),
+    windows gathered on the device at frame offset change_idx from the
+    resident radargrams."""
     T = survey.seqs[0].shape[0]
-    if batched and tasks:
-        groups: dict[int, list] = {}
-        for task in tasks:
-            groups.setdefault(T - task[2], []).append(task)
-        for T_small, group in sorted(groups.items()):
-            print(f"Correction batch: {len(group)} radargram(s), T'={T_small}")
-            preds = pipe.propagate_survey(
-                survey.source,
-                [survey.ids[g[0]] for g in group],
-                [g[3] for g in group],
-                length=T_small,
-                frame_offsets=[g[2] for g in group],
-            )
-            for (t, pixel_offset, _, _), pred in zip(group, preds):
-                seg_list[t] = splice_correction(seg_list[t], pred, pixel_offset)
-    else:
-        for t, pixel_offset, change_idx, seg_ref in tasks:
-            print("Radargram", t)
-            corrected = pipe(survey.seqs[t][change_idx:], seg_ref)
-            seg_list[t] = splice_correction(
-                seg_list[t], corrected.prediction, pixel_offset
-            )
+    groups: dict[int, list] = {}
+    for task in tasks:
+        groups.setdefault(T - task[2], []).append(task)
+    for T_small, group in sorted(groups.items()):
+        print(f"Correction batch: {len(group)} radargram(s), T'={T_small}")
+        preds = pipe.propagate_survey(
+            survey.source,
+            [survey.ids[g[0]] for g in group],
+            [g[3] for g in group],
+            length=T_small,
+            frame_offsets=[g[2] for g in group],
+        )
+        for (t, pixel_offset, _, _), pred in zip(group, preds):
+            seg_list[t] = splice_correction(seg_list[t], pred, pixel_offset)
 
 
 def save_maps(path: str, maps) -> None:

@@ -1,20 +1,21 @@
 """Full-dataset quantitative evaluation (the port of scripts/test_all.py).
 
-    python -m radar_sounder_crw_tpu_torch.cli.test_all --dataset 1 --batched ...
+    python -m radar_sounder_crw_tpu_torch.cli.test_all --dataset 1 ...
 
-Per-radargram propagation (stride seq_length), optional change-point
+Propagation of every radargram (stride seq_length), optional change-point
 correction (the head variant, or the true tail with --correction_tail),
 optional reverse (use_last) pass with the dataset merges, uncertain-class
 removal, classification report, confusion matrix and mIoU, wall-clock
 timings, and the predicted map as int8 `predicted_map.npy` and
-`predicted_map.pt`. --batched runs each pass as one survey call
+`predicted_map.pt`. Each pass is one survey call
 (`PropagationPipeline.propagate_survey`, windows gathered on the device from
 the once-uploaded radargram; on a GPU one launch of the whole-sequence
-kernel per pass) and the corrections in buckets of equal length. The
+kernel per pass), the corrections one call per bucket of equal length: the
+JAX script's batched form, whose maps equal its per-radargram form's. The
 reverse pass always sees true seq_length windows (window geometry is
 immutable), as on the JAX side. Started by `torch.distributed.run`, each
---batched survey call splits its radargrams over the ranks (one a device);
-rank 0 alone prints and writes the files.
+survey call splits its radargrams over the ranks (one a device); rank 0
+alone prints and writes the files.
 """
 
 from __future__ import annotations
@@ -48,8 +49,6 @@ def get_args_parser():
     parser.add_argument("--dataset_full", default=True, type=lambda s: s not in ("0", "false", "False"))
     parser.add_argument("--correction", action="store_true")
     parser.add_argument("--allow_untrained", action="store_true")
-    parser.add_argument("--batched", action="store_true",
-                        help="one survey call per pass for all radargrams")
     parser.add_argument("--no_plots", action="store_true")
     parser.add_argument("--bn_train_mode", action="store_true",
                         help="BatchNorm batch stats at inference (the reference's de-facto behavior)")
@@ -122,44 +121,22 @@ def _evaluate(args, lead: bool):
     if lead:
         ensure_dirs(args.output_folder)
 
-    seg_list, change_list = [], []
-    if args.batched:
-        # one survey call: the radargram is uploaded once and the windows
-        # are gathered on the device; change detection runs on the batched
-        # xent, PELT on the host per radargram
-        seg_refs = [
-            seg[:rg_h, rg_len * t : rg_len * t + W]
-            for t in range(len(rg_idx_list))
-        ]
-        preds, change_list = pipe.propagate_survey(
-            dataset, rg_idx_list, seg_refs, detect_change=True
-        )
-        for t in range(len(rg_idx_list)):
-            pred_px = pipe.prediction_to_pixels(preds[t], (seg.shape[0], rg_len))
-            if plots:
-                plot_segmentation(
-                    pred_px,
-                    save=os.path.join(args.output_folder, f"im{t}.png"),
-                    seg=seg[:, rg_len * t : rg_len * t + rg_len],
-                    dataset=args.dataset,
-                )
-            seg_list.append(pred_px)
-    else:
-        for t, idx in enumerate(rg_idx_list):
-            print("Radargram", t)
-            seq = dataset[idx]
-            seg_ref = seg[:rg_h, rg_len * t : rg_len * t + W]
-            res = pipe(seq, seg_ref)
-            pred_px = pipe.prediction_to_pixels(res.prediction, (seg.shape[0], rg_len))
-            if plots:
-                plot_segmentation(
-                    pred_px,
-                    save=os.path.join(args.output_folder, f"im{t}.png"),
-                    seg=seg[:, rg_len * t : rg_len * t + rg_len],
-                    dataset=args.dataset,
-                )
-            seg_list.append(pred_px)
-            change_list.append(res.change_idx)
+    # one survey call: the radargram is uploaded once and the windows are
+    # gathered on the device; change detection runs on the batched xent,
+    # PELT on the host per radargram
+    seg_refs = [seg[:rg_h, rg_len * t : rg_len * t + W] for t in range(len(rg_idx_list))]
+    preds, change_list = pipe.propagate_survey(dataset, rg_idx_list, seg_refs, detect_change=True)
+    seg_list = []
+    for t in range(len(rg_idx_list)):
+        pred_px = pipe.prediction_to_pixels(preds[t], (seg.shape[0], rg_len))
+        if plots:
+            plot_segmentation(
+                pred_px,
+                save=os.path.join(args.output_folder, f"im{t}.png"),
+                seg=seg[:, rg_len * t : rg_len * t + rg_len],
+                dataset=args.dataset,
+            )
+        seg_list.append(pred_px)
 
     if args.correction:
         print("\nCorrection step")
@@ -192,38 +169,25 @@ def _evaluate(args, lead: bool):
                     dataset=args.dataset,
                 )
 
-        if args.batched and tasks:
-            # one survey call per distinct correction length, windows
-            # gathered from the already-resident radargram
-            groups: dict[int, list] = {}
-            for task in tasks:
-                groups.setdefault(task[2], []).append(task)
-            for T_small, group in sorted(groups.items()):
-                print(f"Correction batch: {len(group)} radargram(s), T'={T_small}")
-                try:
-                    preds = pipe.propagate_survey(
-                        dataset,
-                        [rg_idx_list[g[0]] for g in group],
-                        [g[4] for g in group],
-                        length=T_small,
-                        frame_offsets=[g[3] for g in group],
-                    )
-                    for (t, pixel_offset, _, _, _), pred in zip(group, preds):
-                        apply_correction(t, pixel_offset, pred)
-                except Exception as e:
-                    print(f"  correction batch failed: {e}")
-        else:
-            for t, pixel_offset, small_length, frame_off, seg_ref in tasks:
-                print("Radargram", t)
-                try:
-                    if frame_off:
-                        seq = dataset[rg_idx_list[t]][frame_off:]
-                    else:
-                        seq = dataset.get_smaller_item(rg_idx_list[t], small_length)
-                    corrected = pipe(seq, seg_ref, detect_change=False)
-                    apply_correction(t, pixel_offset, corrected.prediction)
-                except Exception as e:
-                    print(f"  correction failed: {e}")
+        # one survey call per distinct correction length, windows gathered
+        # from the already-resident radargram
+        groups: dict[int, list] = {}
+        for task in tasks:
+            groups.setdefault(task[2], []).append(task)
+        for T_small, group in sorted(groups.items()):
+            print(f"Correction batch: {len(group)} radargram(s), T'={T_small}")
+            try:
+                preds = pipe.propagate_survey(
+                    dataset,
+                    [rg_idx_list[g[0]] for g in group],
+                    [g[4] for g in group],
+                    length=T_small,
+                    frame_offsets=[g[3] for g in group],
+                )
+                for (t, pixel_offset, _, _, _), pred in zip(group, preds):
+                    apply_correction(t, pixel_offset, pred)
+            except Exception as e:
+                print(f"  correction batch failed: {e}")
 
     final_pred = np.concatenate(seg_list, axis=1)
     if lead:
@@ -243,23 +207,9 @@ def _evaluate(args, lead: bool):
             seg_rev[:, rg_len * t : rg_len * t + W]
             for t in range(len(rg_idx_list))
         ]
-        rev_list = []
-        if args.batched:
-            # the forward pass's survey call with the time flip on the device
-            rev_preds = pipe.propagate_survey(
-                dataset, rg_idx_list, rev_seg_refs, use_last=True
-            )
-            for t in range(len(rg_idx_list)):
-                rev_list.append(
-                    pipe.prediction_to_pixels(rev_preds[t], (seg.shape[0], rg_len))
-                )
-        else:
-            for t, idx in enumerate(rg_idx_list):
-                print("Radargram", t)
-                res = pipe(dataset[idx], rev_seg_refs[t], use_last=True)
-                rev_list.append(
-                    pipe.prediction_to_pixels(res.prediction, (seg.shape[0], rg_len))
-                )
+        # the forward pass's survey call with the time flip on the device
+        rev_preds = pipe.propagate_survey(dataset, rg_idx_list, rev_seg_refs, use_last=True)
+        rev_list = [pipe.prediction_to_pixels(p, (seg.shape[0], rg_len)) for p in rev_preds]
         rev_map = reverse_unfold_flip(np.concatenate(rev_list, axis=1), rg_len)
         if args.dataset in (0, 3):
             mask = rev_map.ravel() == 2

@@ -4,7 +4,7 @@ patch 32x32, overlap (24,0), cxt 80 / radius 30 / temp 0.1 / knn 20,
 use_last integration with bedrock and noise override masks, xent heatmap
 figures).
 
-    python -m radar_sounder_crw_tpu_torch.cli.test_mc1 [--batched] ...
+    python -m radar_sounder_crw_tpu_torch.cli.test_mc1 ...
 """
 
 from __future__ import annotations
@@ -43,9 +43,6 @@ def get_args_parser():
                         help="BatchNorm batch stats at inference (the reference's de-facto behavior)")
     parser.add_argument("--xent_quirk", action="store_true",
                         help="reproduce the reference's channel-shifted xent metric")
-    parser.add_argument("--batched", action="store_true",
-                        help="propagate all radargrams in one survey call per pass "
-                        "instead of a per-radargram loop")
     return add_device_args(parser)
 
 
@@ -93,9 +90,7 @@ def main(args):
     os.makedirs(args.output_folder, exist_ok=True)
 
     fwd_refs = [sgs[t][:rg_h, :Wp] for t in range(len(seqs))]
-    seg_list, xent_list, _ = forward_pass(
-        pipe, survey, fwd_refs, (rg_h, rg_len), args.batched
-    )
+    seg_list, xent_list, _ = forward_pass(pipe, survey, fwd_refs, (rg_h, rg_len))
     for t in range(len(seqs)):
         plot_segmentation(seg_list[t], os.path.join(args.output_folder, f"im{t}.png"),
                           dataset=0, aspect=6)
@@ -104,7 +99,7 @@ def main(args):
     if args.use_last:
         print("Reversed step")
         rev_refs = [sgrs[t][:rg_h, :Wp] for t in range(len(seqs))]
-        rev_list = reverse_pass(pipe, survey, rev_refs, (rg_h, rg_len), args.batched)
+        rev_list = reverse_pass(pipe, survey, rev_refs, (rg_h, rg_len))
         final_list = []
         for t in range(len(seqs)):
             plot_segmentation(rev_list[t], os.path.join(args.output_folder, f"im{t}r.png"),

@@ -4,7 +4,7 @@ scripts/test_mc3.py: patch 32x32, overlap (30,0), cxt 100 / radius 60 /
 temp 0.01 / knn 20, change points overridden to [38, 36, 52], correction
 re-propagates the frame tail rg[t][change_idx:]).
 
-    python -m radar_sounder_crw_tpu_torch.cli.test_mc3 [--batched] ...
+    python -m radar_sounder_crw_tpu_torch.cli.test_mc3 ...
 """
 
 from __future__ import annotations
@@ -46,10 +46,6 @@ def get_args_parser():
                         help="BatchNorm batch stats at inference (the reference's de-facto behavior)")
     parser.add_argument("--xent_quirk", action="store_true",
                         help="reproduce the reference's channel-shifted xent metric")
-    parser.add_argument("--batched", action="store_true",
-                        help="propagate all radargrams in one survey call per pass "
-                        "(corrections bucketed by tail "
-                        "length) instead of a per-radargram loop")
     return add_device_args(parser)
 
 
@@ -96,7 +92,7 @@ def main(args):
 
     fwd_refs = [sgs[t][:rg_h, :Wp] for t in range(len(seqs))]
     seg_list, xent_list, change_list = forward_pass(
-        pipe, survey, fwd_refs, (rg_h, rg_len), args.batched, detect_change=True
+        pipe, survey, fwd_refs, (rg_h, rg_len), detect_change=True
     )
     for t in range(len(seqs)):
         plot_segmentation(seg_list[t], os.path.join(args.output_folder, f"jim{t}.png"), dataset=1)
@@ -114,12 +110,11 @@ def main(args):
                 continue
             small_length = args.seq_length - change_idx
             pixel_offset = correction_pixel_offset(small_length, patch[1], overlap[1])
-            # tail = frames [change_idx:] (reference test_mc3.py:126); the
-            # batched path gathers it on-device at frame offset change_idx
+            # tail = frames [change_idx:] (reference test_mc3.py:126)
             seg_ref = sgs[t][:, rg_len - pixel_offset : rg_len - pixel_offset + Wp]
             tasks.append((t, pixel_offset, change_idx, seg_ref))
 
-        run_corrections(pipe, survey, tasks, seg_list, args.batched)
+        run_corrections(pipe, survey, tasks, seg_list)
         for t, _, _, _ in tasks:
             plot_segmentation(seg_list[t], os.path.join(args.output_folder, f"jim{t}c.png"),
                               dataset=1)
@@ -128,7 +123,7 @@ def main(args):
     if args.use_last:
         print("Reversed step")
         rev_refs = [sgs[t][:rg_h, -Wp:] for t in range(len(seqs))]  # seed: LAST cols
-        rev_list = reverse_pass(pipe, survey, rev_refs, (rg_h, rg_len), args.batched)
+        rev_list = reverse_pass(pipe, survey, rev_refs, (rg_h, rg_len))
         final_list = []
         for t in range(len(seqs)):
             plot_segmentation(rev_list[t], os.path.join(args.output_folder, f"jim{t}r.png"),

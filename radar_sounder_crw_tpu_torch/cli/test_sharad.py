@@ -3,7 +3,7 @@
 patch 16x16, overlap (8,0), cxt 100 / radius 10 / temp 0.1 / knn 20, change
 points overridden to [80, 67, 98], negative xent heatmaps with colorbar).
 
-    python -m radar_sounder_crw_tpu_torch.cli.test_sharad [--batched] ...
+    python -m radar_sounder_crw_tpu_torch.cli.test_sharad ...
 """
 
 from __future__ import annotations
@@ -41,10 +41,6 @@ def get_args_parser():
                         help="BatchNorm batch stats at inference (the reference's de-facto behavior)")
     parser.add_argument("--xent_quirk", action="store_true",
                         help="reproduce the reference's channel-shifted xent metric")
-    parser.add_argument("--batched", action="store_true",
-                        help="propagate all radargrams in one survey call per pass "
-                        "(corrections bucketed by tail "
-                        "length) instead of a per-radargram loop")
     return add_device_args(parser)
 
 
@@ -89,7 +85,7 @@ def main(args):
 
     fwd_refs = [sgs[t][:rg_h, :Wp] for t in range(len(seqs))]
     seg_list, xent_list, change_list = forward_pass(
-        pipe, survey, fwd_refs, (rg_h, rg_len), args.batched, detect_change=True
+        pipe, survey, fwd_refs, (rg_h, rg_len), detect_change=True
     )
     for t in range(len(seqs)):
         plt.imshow(-xent_list[t], cmap="gray")
@@ -111,7 +107,7 @@ def main(args):
         seg_ref = sgs[t][:, rg_len - pixel_offset : rg_len - pixel_offset + Wp]
         tasks.append((t, pixel_offset, change_idx, seg_ref))
 
-    run_corrections(pipe, survey, tasks, seg_list, args.batched)
+    run_corrections(pipe, survey, tasks, seg_list)
     for t, _, _, _ in tasks:
         plot_segmentation(seg_list[t], os.path.join(args.output_folder, f"sharad_res{t}.png"),
                           dataset=3)

@@ -10,18 +10,17 @@ returning (prediction (N, T), xent (N, T-1), change_idx).
 
 Follows radar_sounder_crw_tpu/infer/propagate.py (`PropagationPipeline`):
 the single-radargram path, interactive `reseed`, and full-survey inference
-over many radargrams (`propagate_batch` on host-staged windows,
-`propagate_survey` on windows gathered on the device from a once-uploaded
-radargram). Steps 2, 3 and 6 run on the pipeline's device. On a GPU, 6
-launches the whole-sequence CUDA kernel once per seed->map, once per
-reseed and once per survey pass (kernel='auto'; a named kernel runs on
-every path).
+over many radargrams (`propagate_survey`, on windows gathered on the device
+from a once-uploaded radargram). Steps 2, 3 and 6 run on the pipeline's
+device. On a GPU, 6 launches the whole-sequence CUDA kernel once per
+seed->map, once per reseed and once per survey pass (kernel='auto'; a
+named kernel runs on every path).
 
 `bn_train_mode=True` normalizes with batch statistics, as the upstream test
 scripts that never leave train mode do; the running statistics are left
 untouched.
 
-The survey paths take a `mesh` (parallel/mesh.py; default the process
+The survey path takes a `mesh` (parallel/mesh.py; default the process
 group's when one is initialised, else the pipeline's device alone): the
 radargram axis R is padded to a multiple of the mesh size, each rank
 encodes and propagates its R / size radargrams (the route chosen for its
@@ -276,8 +275,8 @@ class PropagationPipeline:
         At eval the encoder runs as ONE flat (R*T)-frame forward: running
         BatchNorm statistics and the per-embedding L2 make the radargram
         axis inert. Under bn_train_mode each radargram is encoded alone, so
-        batch statistics never mix across radargrams, as in the sequential
-        path. Compact (R, N) int seeds become a one-hot here."""
+        batch statistics never mix across radargrams, as in `__call__`.
+        Compact (R, N) int seeds become a one-hot here."""
         if seeds.dim() == 2:
             seeds = torch.nn.functional.one_hot(seeds.long(), self.nclasses).float()
         R, T, N = seqs.shape[:3]
@@ -301,34 +300,6 @@ class PropagationPipeline:
         sigs = column_diffs(xents) if compute_xent else None
         return pred, sigs, (xents if return_xent else None)
 
-    def propagate_batch(
-        self, seqs, seg_refs, mesh=None, use_last: bool = False, detect_change: bool = False,
-        return_xent: bool = False,
-    ):
-        """Full-survey inference on host-staged windows: seqs (R, T, N, h, w)
-        (host array or tensor), seg_refs: R seed segmentation patches, split
-        over `mesh` (see the module docstring).
-
-        Returns (R, N, T) int32 predictions; with detect_change=True a tuple
-        (predictions, change indices), the change detection running on the
-        batched xent signal (device) and per-radargram PELT (host); with
-        return_xent=True the (R, N, T-1) xent maps are appended last."""
-        mesh = default_mesh(self.device) if mesh is None else mesh
-        seqs = torch.as_tensor(seqs, dtype=torch.float32, device=self.device)
-        if use_last:
-            seqs = seqs.flip(1)
-        T, N = seqs.shape[1:3]
-        seqs, real = pad_to_multiple(seqs, mesh.size)
-        seeds, _ = pad_to_multiple(self._stack_seed_labels(seg_refs, N), mesh.size)
-        if mesh.group is not None:
-            seqs, seeds = shard_batch(seqs, mesh), shard_batch(seeds, mesh)
-        pred, sigs, xents = self._batched_body(
-            seqs, torch.as_tensor(seeds, device=self.device),
-            compute_xent=detect_change and T >= 4, return_xent=return_xent,
-        )
-        return self._fetch_batched(*self._gather(mesh, pred, sigs, xents), real, detect_change,
-                                   return_xent)
-
     @staticmethod
     def _gather(mesh, *outs):
         """Each rank's outputs (None stays None) gathered over the mesh."""
@@ -337,7 +308,7 @@ class PropagationPipeline:
         return tuple(None if t is None else all_gather(t, mesh) for t in outs)
 
     def _fetch_batched(self, pred, sigs, xents, real, detect_change, return_xent):
-        """The host tail of the batched paths: fetch, keep the first `real`
+        """The host tail of the survey path: fetch, keep the first `real`
         radargrams, per-radargram PELT on the batched signal."""
         preds = pred[:real].permute(0, 2, 1).to(torch.int32).cpu().numpy()  # (R, N, T)
         result = (preds,)
@@ -358,8 +329,13 @@ class PropagationPipeline:
         return_xent: bool = False,
     ):
         """Full-survey inference with windows gathered on the device: exactly
-        `propagate_survey_device` plus the one host fetch. Returns what
-        `propagate_batch` returns for the same windows, value for value."""
+        `propagate_survey_device` plus the one host fetch.
+
+        Returns (R, N, T) int32 predictions; with detect_change=True a tuple
+        (predictions, change indices), the change detection running on the
+        batched xent signal (device) and per-radargram PELT (host); with
+        return_xent=True the (R, N, T-1) xent maps are appended last. Each
+        radargram's result is what `__call__` computes on its window."""
         pred, sigs, xents, real = self.propagate_survey_device(
             source, window_ids, seg_refs, length=length, frame_offsets=frame_offsets,
             mesh=mesh, use_last=use_last, detect_change=detect_change, return_xent=return_xent,
@@ -389,7 +365,10 @@ class PropagationPipeline:
           mapping: window i shifted by k frames starts at frame k of window
           i (frames and windows share the (w - ow) column stride), which is
           how the correction tails dataset[i][change_idx:] are gathered.
-        mesh / use_last / detect_change / return_xent: as in propagate_batch."""
+        mesh: the ranks to split the windows over (see the module docstring).
+        use_last: seed the last frame (each window time-flipped on the
+          device).
+        detect_change / return_xent: as in `propagate_survey`."""
         from ..data.device_windows import gather_windows, resident_source
 
         rs = resident_source(source)
@@ -467,7 +446,7 @@ class PropagationPipeline:
         return (*self._gather(mesh, pred, sigs, xents), real)
 
     def _stack_seed_labels(self, seg_refs, n_nodes: int) -> np.ndarray:
-        """(R, N) compact int seed labels for the batched paths; the one-hot
+        """(R, N) compact int seed labels for the survey path; the one-hot
         is rebuilt on the device. np.eye (the single-radargram path) takes
         labels in [-M, M) with negatives wrapping, so negatives wrap here too
         and anything np.eye would refuse raises IndexError."""

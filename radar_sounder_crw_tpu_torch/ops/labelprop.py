@@ -187,10 +187,9 @@ def _prop_step_batched(feats, query, mask, slot_bias, labels, temperature: float
     """One propagation frame for B radargrams in plain PyTorch: the twin of
     the `prop_step` and `prop_seq` kernels.
 
-    feats (B, K, N, C); query (B, Nq, C), all N query nodes or a block of
-    them (`_query_blocks`); mask (N, Nq) additive; slot_bias (K,) additive
-    per slot; labels (B, K, N, M). Only the first `nslots` slots are read.
-    Returns pred (B, Nq, M).
+    feats (B, K, N, C); query (B, Nq, C), the query nodes; mask (N, Nq)
+    additive; slot_bias (K,) additive per slot; labels (B, K, N, M). Only
+    the first `nslots` slots are read. Returns pred (B, Nq, M).
 
     The winners come from `_winners`. The softmax-weighted sum runs winner
     by winner, e_j = exp(v_j - v_0), num += e_j * label_j, den += e_j,
@@ -425,32 +424,22 @@ def resolve_kernel(kernel: str, device: torch.device) -> str:
 AUTO_ORDER = ("cuda_seq", "cuda")  # the kernels 'auto' tries on a CUDA device, in order
 
 
-def _route(kernel: str, device: torch.device, query_block, T: int, N: int, M: int, knn: int,
+def _route(kernel: str, device: torch.device, T: int, N: int, M: int, knn: int,
            long_mem: tuple, cxt: int) -> str:
     """The route of one call, decided before any launch. 'auto' takes the
     first kernel of AUTO_ORDER whose limits (knn, classes, shared memory;
     `labelprop_cuda.fits`) take this call's shapes: the whole-sequence
     kernel, else the per-frame one, else the plain route on the same
     device, as the JAX package's 'auto' takes XLA where `plan_blocks` finds
-    no plan. A `query_block` sends 'auto' to the plain route. A kernel
-    chosen by name is never switched: with a `query_block` it raises here,
-    past its limits its wrapper raises.
+    no plan. A kernel chosen by name is never switched: past its limits its
+    wrapper raises.
 
     One radargram takes the whole-sequence kernel on purpose, where the JAX
     package's 'auto' takes its per-frame kernel: on the H100 a launch a
     frame costs more host time than the frame's device work."""
     auto = kernel == "auto"
     kernel = resolve_kernel(kernel, device)
-    if kernel == "torch":
-        return kernel
-    if query_block is not None:
-        if not auto:
-            raise ValueError(
-                f"query_block applies to the plain route only (kernel='torch' or 'auto'), "
-                f"not kernel={kernel!r}"
-            )
-        return "torch"
-    if not auto:
+    if kernel == "torch" or not auto:
         return kernel
     from .labelprop_cuda import fits
 
@@ -466,30 +455,11 @@ def _cuda_step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
                      nslots)[None]
 
 
-def _query_blocks(qb: int):
-    """`_prop_step_batched` over the query nodes in sequential blocks of qb,
-    in `_frame_loop`'s step signature: each block's affinity is
-    (B, nslots*N, qb), so the peak is O(K*N*qb) instead of the (K*N, N)
-    affinity of the whole frame. A query's winners and weighted sum read
-    only its own affinity column, so each block's outputs are the
-    unchunked step's; the last block is shorter and needs no padding."""
-
-    def step(feats, query, mask, slot_bias, labels, temperature, knn, nslots):
-        return torch.cat([
-            _prop_step_batched(feats, query[:, i : i + qb], mask[:, i : i + qb], slot_bias,
-                               labels, temperature, knn, nslots)
-            for i in range(0, query.shape[1], qb)
-        ], dim=1)
-
-    return step
-
-
-def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kernel: str,
-               qb: int | None = None):
+def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kernel: str):
     """soft (B, T, N, M) through the resolved kernel: 'torch' the plain
-    batched loop (query blocks of qb when set), 'cuda' one prop_step launch
-    per frame, radargram by radargram, 'cuda_seq' one prop_seq launch,
-    'cuda_resident' one prop_all launch."""
+    batched loop, 'cuda' one prop_step launch per frame, radargram by
+    radargram, 'cuda_seq' one prop_seq launch, 'cuda_resident' one
+    prop_all launch."""
     args = (long_mem, cfg.cxt_size, cfg.temperature, knn)
     if kernel == "cuda_seq":
         from .labelprop_cuda import prop_seq
@@ -504,15 +474,12 @@ def _propagate(emb, seeds, mask, long_mem, cfg: LabelPropConfig, knn: int, kerne
             _frame_loop(emb[b : b + 1], seeds[b : b + 1], mask, *args, _cuda_step)
             for b in range(emb.shape[0])
         ])
-    if qb is not None:
-        return _frame_loop(emb, seeds, mask, *args, _query_blocks(qb))
     return propagate_seq_reference(emb, seeds, mask, *args)
 
 
 @torch.no_grad()
 def propagate_labels(
-    emb, seed_labels, cfg: LabelPropConfig, grid_hw=None, kernel: str = "auto",
-    device=None, query_block: int | None = None,
+    emb, seed_labels, cfg: LabelPropConfig, grid_hw=None, kernel: str = "auto", device=None,
 ):
     """Propagate seed labels through a frame sequence.
 
@@ -526,17 +493,11 @@ def propagate_labels(
         per frame), 'cuda_seq' (the whole-sequence kernel, one launch; the
         B = 1 view of `propagate_labels_batched`), 'cuda_resident' (the
         whole-sequence kernel with the TPU resident kernel's weight
-        arithmetic, one launch) or 'auto': on a CUDA device with no
-        query_block set, 'cuda_seq' where the call fits that kernel's limits
-        (knn <= 256, the class count, shared memory), else 'cuda' where it
-        fits that one's, else 'torch'; 'torch' on the CPU.
+        arithmetic, one launch) or 'auto': on a CUDA device 'cuda_seq'
+        where the call fits that kernel's limits (knn <= 256, the class
+        count, shared memory), else 'cuda' where it fits that one's, else
+        'torch'; 'torch' on the CPU.
       device: where to run; default cuda (raises when CUDA is absent).
-      query_block: plain route only; when set, each frame's query nodes run
-        in sequential blocks of min(query_block, N), bounding the affinity
-        to O(K*N*query_block) instead of (K*N, N). Each query's arithmetic
-        is the unchunked step's (equal bit for bit wherever the affinity's
-        dot products are exact; the BLAS may sum a narrow block's in
-        another order). A CUDA kernel named with it raises.
 
     Returns:
       soft: (T, N, M) float32 soft labels per frame (frame 0 = the seed).
@@ -544,15 +505,13 @@ def propagate_labels(
     """
     emb = torch.as_tensor(emb, dtype=torch.float32)
     seed = torch.as_tensor(seed_labels, dtype=torch.float32)
-    soft, pred = _propagate_labels(emb[None], seed[None], cfg, grid_hw, kernel, None,
-                                   query_block, device)
+    soft, pred = _propagate_labels(emb[None], seed[None], cfg, grid_hw, kernel, device)
     return soft[0], pred[0]
 
 
 @torch.no_grad()
 def propagate_labels_batched(
-    emb, seed_labels, cfg: LabelPropConfig, grid_hw=None, kernel: str = "auto",
-    batch_block: int | None = None, device=None, query_block: int | None = None,
+    emb, seed_labels, cfg: LabelPropConfig, grid_hw=None, kernel: str = "auto", device=None,
 ):
     """Propagate B radargrams at once: emb (B, T, N, C), seed_labels
     (B, N, M) -> soft (B, T, N, M), pred (B, T, N) int32.
@@ -560,50 +519,21 @@ def propagate_labels_batched(
     kernel: as in `propagate_labels`: 'auto' is one launch of the
     whole-sequence kernel for the batch on a CUDA device ('cuda_resident'
     likewise launches `prop_all` once for the batch). 'cuda' runs the
-    per-frame kernel radargram by radargram.
-
-    batch_block: when set, the batch runs in chunks of this size (one
-    launch per chunk under 'cuda_seq' and 'cuda_resident'), bounding the
-    working set; a trailing partial chunk is padded with the first
-    radargram and its outputs are dropped. The results equal the unchunked
-    call. query_block: as in `propagate_labels`."""
-    return _propagate_labels(emb, seed_labels, cfg, grid_hw, kernel, batch_block, query_block,
-                             device)
+    per-frame kernel radargram by radargram."""
+    return _propagate_labels(emb, seed_labels, cfg, grid_hw, kernel, device)
 
 
-def _propagate_labels(emb, seed_labels, cfg: LabelPropConfig, grid_hw, kernel: str,
-                      batch_block, query_block, device):
+def _propagate_labels(emb, seed_labels, cfg: LabelPropConfig, grid_hw, kernel: str, device):
     """The entry points' common body: the route, then the propagation in
-    the span `crw.frames`, one span a call whatever the route."""
+    the span `crw.frames`, one span a call whatever the route, then the
+    argmax."""
     device = resolve_device(device)
     emb = torch.as_tensor(emb, dtype=torch.float32, device=device).contiguous()
     seeds = torch.as_tensor(seed_labels, dtype=torch.float32, device=device).contiguous()
-    B, T, N, C = emb.shape
+    _, T, N, _ = emb.shape
     mask, long_mem = _validate_cfg(cfg, N, grid_hw, device)
     knn = min(cfg.knn, (len(long_mem) + cfg.cxt_size) * N)
-    qb = None
-    if query_block is not None:
-        if int(query_block) < 1:
-            raise ValueError(f"query_block must be >= 1, got {query_block}")
-        qb = min(int(query_block), N)
-    kernel = _route(kernel, device, query_block, T, N, seeds.shape[-1], knn, long_mem,
-                    cfg.cxt_size)
-    if batch_block is None:
-        with span("crw.frames"):
-            soft = _propagate(emb, seeds, mask, long_mem, cfg, knn, kernel, qb)
-        return soft, soft.argmax(dim=-1).to(torch.int32)
-    bb = int(batch_block)
-    if bb < 1:
-        raise ValueError(f"batch_block must be >= 1, got {batch_block}")
-    bb = min(bb, B)
-    n_chunks = -(-B // bb)
-    pad = n_chunks * bb - B
-    if pad:
-        emb = torch.cat([emb, emb[:1].expand(pad, *emb.shape[1:])])
-        seeds = torch.cat([seeds, seeds[:1].expand(pad, *seeds.shape[1:])])
+    kernel = _route(kernel, device, T, N, seeds.shape[-1], knn, long_mem, cfg.cxt_size)
     with span("crw.frames"):
-        soft = torch.cat([
-            _propagate(emb[i : i + bb], seeds[i : i + bb], mask, long_mem, cfg, knn, kernel, qb)
-            for i in range(0, n_chunks * bb, bb)
-        ])[:B]
+        soft = _propagate(emb, seeds, mask, long_mem, cfg, knn, kernel)
     return soft, soft.argmax(dim=-1).to(torch.int32)

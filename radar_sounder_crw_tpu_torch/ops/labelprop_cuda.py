@@ -64,7 +64,7 @@ _pin_arrays: dict[tuple, torch.Tensor] = {}
 
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_WHOLE_SEQUENCE = {  # csrc/prop_frames.cuh, bound by prop_seq.cu and prop_all.cu
+_SEQ_SIGNATURES = {  # csrc/prop_frames.cuh, bound by prop_seq.cu and prop_all.cu
     "select_launch": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
     "chain_launch": ([_P] * 3 + [_I] * 6 + [_P], _I),
     "select_smem_bytes": ([_I] * 2, _LL),
@@ -79,8 +79,8 @@ SIGNATURES = {
         "wave": ([_I], _I),
         **_COMMON,
     },
-    "prop_seq": {**_WHOLE_SEQUENCE, **_COMMON},
-    "prop_all": {**_WHOLE_SEQUENCE, **_COMMON},
+    "prop_seq": {**_SEQ_SIGNATURES, **_COMMON},
+    "prop_all": {**_SEQ_SIGNATURES, **_COMMON},
 }
 
 

@@ -87,11 +87,12 @@ def resnet_checkpoint(tmp_path_factory):
     return _write_checkpoint(tmp_path_factory, 1)
 
 
-def run_both(capsys, name, args, tmp_path):
-    """Run scripts/<name>.py and the port's cli.<name> on the same flags;
-    returns {side: (main's result, its stdout)}, outputs under tmp_path/side."""
+def run_both(capsys, name, args, tmp_path, jax_args=()):
+    """Run scripts/<name>.py and the port's cli.<name> on the same flags, the
+    JAX script with `jax_args` besides (its --batched form); returns
+    {side: (main's result, its stdout)}, outputs under tmp_path/side."""
     out = {}
-    for side, mod, extra in (("jax", jax_script(name), []),
+    for side, mod, extra in (("jax", jax_script(name), [*jax_args]),
                              ("port", port_cli(name), ["--device", "cpu"])):
         argv = [*args, *extra]
         if "--output_folder" not in args:
@@ -149,20 +150,24 @@ def assert_maps(got, want, margin):
 def test_test_all_matches_jax_on_the_fixture(capsys, monkeypatch, tmp_path, checkpoint, config,
                                              mode, schedule):
     """The committed MCoRDS1 fixture (dataset 0): forward, corrections (head
-    or tail, sequential or bucketed), reverse with the dataset-0 merge and
-    the uncertain-class removal from reference 2."""
+    or tail, bucketed), reverse with the dataset-0 merge and the
+    uncertain-class removal from reference 2; the port's one form against
+    the JAX script's per-radargram loop and its --batched form (`mode`'s
+    --batched goes to the JAX side alone)."""
     monkeypatch.setenv("RSCRW_DATA_ROOT", FIXTURE_ROOT)
     if schedule is not None:
         pin_changes(monkeypatch, schedule)
+    batched = "--batched" in mode
     args = ["--model", "0", "--dataset", "0", "--patch_size", "16", "16", "--overlap", "8", "0",
             "--seq_length", "12", *(GENERIC if config == "generic" else MARGIN),
             "--dataset_full", "0", "--no_plots", "--correction", "--use_last",
-            "--model_path", checkpoint, *mode]
-    out = run_both(capsys, "test_all", args, tmp_path)
+            "--model_path", checkpoint, *(m for m in mode if m != "--batched")]
+    out = run_both(capsys, "test_all", args, tmp_path, ["--batched"] if batched else [])
     (want, jtxt), (got, ptxt) = out["jax"], out["port"]
     assert "using synthetic" not in ptxt and "Loaded encoder weights" in ptxt
     assert lines(ptxt, "Change point for each") == lines(jtxt, "Change point for each")
-    assert lines(ptxt, "Correction batch") == lines(jtxt, "Correction batch")
+    if batched:
+        assert lines(ptxt, "Correction batch") == lines(jtxt, "Correction batch")
     if schedule is not None:
         assert "None, 5" in lines(ptxt, "Change point for each")[0] or config == "margin"
     if assert_maps(got, want, config == "margin"):
@@ -187,23 +192,54 @@ def small_miguel(monkeypatch):
     monkeypatch.setitem(jax_registry._synth_cache, (1, 8), pair)
 
 
-@pytest.mark.parametrize("dataset", [1, 3])
+@pytest.mark.parametrize("dataset,batched", [
+    pytest.param(1, True, id="1"), pytest.param(3, True, id="3"),
+    pytest.param(1, False, id="1-sequential"), pytest.param(3, False, id="3-sequential")])
 def test_test_all_datasets_match_jax(capsys, monkeypatch, tmp_path, checkpoint, small_miguel,
-                                     dataset):
+                                     dataset, batched):
     """Synthetic Miguel (dataset 1: the trim, the MCORDS3 merge, removal of
     label 5) and SHARAD (dataset 3: the bedrock merge on the second half),
-    batched, corrections bucketed."""
+    corrections bucketed, against the JAX script's --batched form and its
+    per-radargram loop."""
     pin_changes(monkeypatch, [4, None, 2, 4])
     geometry = (["--patch_size", "16", "16", "--overlap", "0", "0", "--seq_length", "40"]
                 if dataset == 1 else
                 ["--patch_size", "16", "16", "--overlap", "8", "0", "--seq_length", "6"])
     args = ["--model", "0", "--dataset", str(dataset), *geometry, *GENERIC,
-            "--dataset_full", "0", "--no_plots", "--correction", "--use_last", "--batched",
+            "--dataset_full", "0", "--no_plots", "--correction", "--use_last",
             "--model_path", checkpoint]
-    out = run_both(capsys, "test_all", args, tmp_path)
+    out = run_both(capsys, "test_all", args, tmp_path, ["--batched"] if batched else [])
     (want, jtxt), (got, ptxt) = out["jax"], out["port"]
     assert lines(ptxt, "Num of radargrams") == lines(jtxt, "Num of radargrams")
-    assert lines(ptxt, "Correction batch") == lines(jtxt, "Correction batch")
+    assert lines(ptxt, "Change point for each") == lines(jtxt, "Change point for each")
+    if batched:
+        assert lines(ptxt, "Correction batch") == lines(jtxt, "Correction batch")
+    if assert_maps(got, want, margin=False):
+        assert report(ptxt) == report(jtxt)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["sequential", "batched"])
+@pytest.mark.parametrize("extra", [
+    ["--flip", "--dataset_full", "0", "--correction", "--use_last"],
+    ["--correction", "--use_last"],
+    ["--dataset_full", "0", "--correction"],
+], ids=["flip", "full", "correction_only"])
+def test_test_all_options_match_jax(capsys, monkeypatch, tmp_path, checkpoint, extra, batched):
+    """The committed MCoRDS1 fixture with the radargram flipped (--flip),
+    every stride-seq_length window of the dataset (--dataset_full 1, the
+    default), and corrections without the reverse pass: the port's one form
+    against the JAX script's per-radargram loop and its --batched form."""
+    monkeypatch.setenv("RSCRW_DATA_ROOT", FIXTURE_ROOT)
+    pin_changes(monkeypatch, [3, None, 5, 3, 8])
+    args = ["--model", "0", "--dataset", "0", "--patch_size", "16", "16", "--overlap", "8", "0",
+            "--seq_length", "12", *GENERIC, "--no_plots", "--model_path", checkpoint, *extra]
+    out = run_both(capsys, "test_all", args, tmp_path, ["--batched"] if batched else [])
+    (want, jtxt), (got, ptxt) = out["jax"], out["port"]
+    assert lines(ptxt, "List of items") == lines(jtxt, "List of items")
+    assert lines(ptxt, "Change point for each") == lines(jtxt, "Change point for each")
+    assert ("Reversed step" in ptxt) == ("--use_last" in extra)
+    if batched:
+        assert lines(ptxt, "Correction batch") == lines(jtxt, "Correction batch")
     if assert_maps(got, want, margin=False):
         assert report(ptxt) == report(jtxt)
 

@@ -3,10 +3,10 @@ cli.test_sharad and their shared cli._qualitative) vs the JAX package's
 scripts (CPU), in-process, on the scripts' synthetic stand-ins with one
 shared ResNet-10 checkpoint (tests/test_torch_cli.py). The saved maps follow
 the map rule of ROADMAP.md (>= 99.5 % equal; equal where a run's maps are
-equal, the xent maps then to atol 1e-4), with the sequential and the
---batched forms each against the JAX script's same form; the fixed change
-points, the merges and the flip of the first SHARAD radargram are the
-scripts' own.
+equal, the xent maps then to atol 1e-4), the port's one form (a survey
+call a pass) against each of the JAX script's two, its per-radargram loop
+and --batched; the fixed change points, the merges and the flip of the
+first SHARAD radargram are the scripts' own.
 """
 
 import numpy as np
@@ -28,12 +28,19 @@ def _compare(tmp_path, products, xents=()):
                                    atol=XENT_ATOL, rtol=0, err_msg=f)
 
 
+def _compare_lines(ptxt, jtxt, change, batched):
+    """The change points and the correction step equal; the buckets' lines
+    only where the JAX script printed them (--batched)."""
+    prefixes = (change, "Correction step", *(["Correction batch"] if batched else []))
+    assert lines(ptxt, *prefixes) == lines(jtxt, *prefixes)
+
+
 @pytest.mark.parametrize("batched", [False, True])
 def test_mc1_matches_jax(capsys, tmp_path, resnet_checkpoint, batched):
     args = ["--patch_size", "32", "32", "--overlap", "0", "0", "--seq_length", "4", "-c", "4",
             "-r", "10", "-t", "0.1", "-k", "5", "--model_path", resnet_checkpoint,
-            "--input_folder", str(tmp_path / "in"), *(["--batched"] if batched else [])]
-    out = run_both(capsys, "test_mc1", args, tmp_path)
+            "--input_folder", str(tmp_path / "in")]
+    out = run_both(capsys, "test_mc1", args, tmp_path, ["--batched"] if batched else [])
     assert "MC1 test done." in out["port"][1]
     assert lines(out["port"][1], "Num of") == lines(out["jax"][1], "Num of")
     _compare(tmp_path, ["mc1_res.npy"])
@@ -45,13 +52,11 @@ def test_mc1_matches_jax(capsys, tmp_path, resnet_checkpoint, batched):
 def test_mc3_matches_jax(capsys, tmp_path, resnet_checkpoint, batched):
     args = ["--patch_size", "32", "32", "--overlap", "0", "0", "--seq_length", "6", "-c", "6",
             "-r", "10", "-t", "0.01", "-k", "5", "--change_points", "2", "3", "2",
-            "--model_path", resnet_checkpoint, "--input_folder", str(tmp_path / "in"),
-            *(["--batched"] if batched else [])]
-    out = run_both(capsys, "test_mc3", args, tmp_path)
+            "--model_path", resnet_checkpoint, "--input_folder", str(tmp_path / "in")]
+    out = run_both(capsys, "test_mc3", args, tmp_path, ["--batched"] if batched else [])
     ptxt, jtxt = out["port"][1], out["jax"][1]
     assert "MC3 test done." in ptxt
-    assert lines(ptxt, "Detected change", "Correction") == lines(jtxt, "Detected change",
-                                                                  "Correction")
+    _compare_lines(ptxt, jtxt, "Detected change", batched)
     _compare(tmp_path, ["mc3_res.npy", "mc3_resy.npy"], ["mc3_xenty.npy"])
     for f in ("jim0.png", "jim0c.png", "jim2x.png"):
         assert (tmp_path / "port" / f).exists(), f
@@ -61,13 +66,11 @@ def test_mc3_matches_jax(capsys, tmp_path, resnet_checkpoint, batched):
 def test_sharad_matches_jax(capsys, tmp_path, resnet_checkpoint, batched):
     args = ["--patch_size", "16", "16", "--overlap", "0", "0", "--seq_length", "6", "-c", "6",
             "-r", "8", "-t", "0.1", "-k", "5", "--change_points", "3", "3", "3",
-            "--model_path", resnet_checkpoint, "--input_folder", str(tmp_path / "in"),
-            *(["--batched"] if batched else [])]
-    out = run_both(capsys, "test_sharad", args, tmp_path)
+            "--model_path", resnet_checkpoint, "--input_folder", str(tmp_path / "in")]
+    out = run_both(capsys, "test_sharad", args, tmp_path, ["--batched"] if batched else [])
     ptxt, jtxt = out["port"][1], out["jax"][1]
     assert "SHARAD test done." in ptxt
-    assert lines(ptxt, "Predicted change", "Correction") == lines(jtxt, "Predicted change",
-                                                                  "Correction")
+    _compare_lines(ptxt, jtxt, "Predicted change", batched)
     _compare(tmp_path, ["s_res.npy"], ["s_xent.npy"])
     assert (tmp_path / "port" / "sharad_xent0.png").exists()
 

@@ -312,12 +312,10 @@ def test_cuda_resident_route_agrees_with_cuda(cuda):
     soft_c, pred_c = propagate_labels(emb[0], seeds[0], cfg, kernel="cuda")
     assert (soft_r - soft_c).abs().max().item() <= 1e-5
     assert (pred_r == pred_c).float().mean().item() >= 0.995
-    # batched: one launch for the stack, or one per batch_block chunk
+    # batched: one launch for the stack
     emb, seeds = _seq_inputs(3, 12, 10, 8, 3, 4, cuda)
-    soft, _ = propagate_labels_batched(emb, seeds, cfg, kernel="cuda_resident")
-    chunked, _ = propagate_labels_batched(emb, seeds, cfg, kernel="cuda_resident", batch_block=2)
-    assert labelprop_cuda.launches["prop_all"] == before + 4
-    assert torch.equal(soft, chunked)
+    propagate_labels_batched(emb, seeds, cfg, kernel="cuda_resident")
+    assert labelprop_cuda.launches["prop_all"] == before + 2
 
 
 @pytest.mark.parametrize("T,N,M,pad", [
@@ -365,8 +363,8 @@ def test_auto_past_the_limits_takes_the_plain_route(cuda):
             propagate_labels_batched(emb, seeds, cfg, kernel=kernel)
 
 
-def test_cli_test_all_batched_matches_the_plain_route(cuda, tmp_path, monkeypatch):
-    """`cli.test_all --batched --correction --use_last` at toy size on the
+def test_cli_test_all_matches_the_plain_route(cuda, tmp_path, monkeypatch):
+    """`cli.test_all --correction --use_last` at toy size on the
     card, default device and kernel, against --kernel torch: the maps agree
     and the default route launched the whole-sequence kernel."""
     from radar_sounder_crw_tpu_torch.cli import test_all
@@ -378,7 +376,7 @@ def test_cli_test_all_batched_matches_the_plain_route(cuda, tmp_path, monkeypatc
         before = labelprop_cuda.launches["prop_seq"]
         args = test_all.get_args_parser().parse_args([
             "--model", "0", "--dataset", "3", "--seq_length", "8", "-c", "8", "-r", "6",
-            "-k", "5", "--batched", "--correction", "--use_last", "--no_plots",
+            "-k", "5", "--correction", "--use_last", "--no_plots",
             "--allow_untrained", "--kernel", kernel, "--output_folder", str(tmp_path / kernel)])
         maps[kernel] = test_all.main(args)
         launched = labelprop_cuda.launches["prop_seq"] - before

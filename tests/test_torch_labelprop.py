@@ -43,27 +43,35 @@ def make_inputs(T, N, C, M, seed=0, ties=False):
 
 
 @pytest.mark.parametrize(
-    "T,N,C,M,ctx,radius,knn,long_mem,ties",
+    "T,N,C,M,ctx,radius,knn,long_mem,ties,seed,temp",
     [
         # the shapes of tests/test_labelprop_pallas.py::test_fused_kernel_matches_xla
-        (8, 16, 32, 4, 5, 5, 3, (0,), False),  # ring wraps (cxt < T)
-        (6, 16, 32, 4, 10, 4, 3, (0,), False),  # no wrap
-        (5, 12, 16, 5, 3, 100, 6, (0,), False),  # radius covers everything
-        (6, 16, 32, 4, 9, 5, 4, (0,), False),
-        (4, 190, 32, 6, 6, 60, 5, (0,), False),  # MC3 grid, N = 190
-        (4, 128, 16, 3, 3, 50, 4, (0,), False),
-        (5, 5, 16, 3, 3, 2, 2, (0,), False),  # tiny N
-        (14, 20, 8, 5, 6, 3, 4, (0, 2), False),  # multi-frame long_mem pins
-        (5, 9, 8, 3, 3, 4, 30, (0,), False),  # knn > candidate count
-        (9, 12, 16, 4, 5, 4, 3, (0,), True),  # tie-heavy
-        (10, 14, 8, 4, 4, 3, 5, (0, 2), True),  # tie-heavy + pins + wrap
+        (8, 16, 32, 4, 5, 5, 3, (0,), False, 0, 0.07),  # ring wraps (cxt < T)
+        (6, 16, 32, 4, 10, 4, 3, (0,), False, 0, 0.07),  # no wrap
+        (5, 12, 16, 5, 3, 100, 6, (0,), False, 0, 0.07),  # radius covers everything
+        (6, 16, 32, 4, 9, 5, 4, (0,), False, 0, 0.07),
+        (4, 190, 32, 6, 6, 60, 5, (0,), False, 0, 0.07),  # MC3 grid, N = 190
+        (4, 128, 16, 3, 3, 50, 4, (0,), False, 0, 0.07),
+        (5, 5, 16, 3, 3, 2, 2, (0,), False, 0, 0.07),  # tiny N
+        (14, 20, 8, 5, 6, 3, 4, (0, 2), False, 0, 0.07),  # multi-frame long_mem pins
+        (5, 9, 8, 3, 3, 4, 30, (0,), False, 0, 0.07),  # knn > candidate count
+        (9, 12, 16, 4, 5, 4, 3, (0,), True, 0, 0.07),  # tie-heavy
+        (10, 14, 8, 4, 4, 3, 5, (0, 2), True, 0, 0.07),  # tie-heavy + pins + wrap
+        # more tie-heavy and odd-N inputs (N = 12, 14, 23, 16, 9), temperature 0.1
+        (9, 12, 16, 4, 5, 4, 3, (0,), True, 113, 0.1),
+        (10, 14, 8, 4, 4, 3, 5, (0, 2), True, 144, 0.1),
+        (8, 23, 32, 5, 5, 6, 4, (0,), False, 191, 0.1),
+        (6, 16, 32, 4, 10, 4, 3, (0,), False, 97, 0.1),
+        (5, 9, 8, 3, 3, 4, 30, (0,), False, 145, 0.1),  # knn > candidate count
     ],
 )
-def test_plain_path_matches_jax_xla(T, N, C, M, ctx, radius, knn, long_mem, ties):
-    emb, seed = make_inputs(T, N, C, M, ties=ties)
-    kw = dict(cxt_size=ctx, radius=radius, temperature=0.07, knn=knn, long_mem=long_mem)
-    s_ref, p_ref = jax_propagate(jnp.asarray(emb), jnp.asarray(seed), JaxConfig(**kw), None, "xla")
-    soft, pred = propagate_labels(emb, seed, LabelPropConfig(**kw), kernel="torch", device="cpu")
+def test_plain_path_matches_jax_xla(T, N, C, M, ctx, radius, knn, long_mem, ties, seed, temp):
+    emb, seed_labels = make_inputs(T, N, C, M, seed=seed, ties=ties)
+    kw = dict(cxt_size=ctx, radius=radius, temperature=temp, knn=knn, long_mem=long_mem)
+    s_ref, p_ref = jax_propagate(jnp.asarray(emb), jnp.asarray(seed_labels), JaxConfig(**kw),
+                                 None, "xla")
+    soft, pred = propagate_labels(emb, seed_labels, LabelPropConfig(**kw), kernel="torch",
+                                  device="cpu")
     assert soft.shape == (T, N, M) and pred.shape == (T, N)
     np.testing.assert_allclose(soft.numpy(), np.asarray(s_ref), rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(pred.numpy(), np.asarray(p_ref))

@@ -105,30 +105,6 @@ def test_batched_twin_matches_jax_vmapped_resident_kernel():
         assert torch.equal(twin(emb[r : r + 1], seeds[r : r + 1], 4, 4, TEMP, 4, (0,))[0], soft[r])
 
 
-def test_cuda_resident_route_chunks_like_jax(monkeypatch):
-    """The route itself on CPU tensors: with the device check lifted,
-    'cuda_resident' reaches the prop_all wrapper once per call, or once per
-    batch_block chunk, and the wrapper runs the twin; batch_block=2 over
-    B = 3 equals the unchunked call and JAX's chunked resident kernel."""
-    emb, seeds = make_inputs(3, 8, 10, 8, 4, seed=40)
-    kw = dict(cxt_size=4, radius=4, temperature=TEMP, knn=4)
-    calls = []
-    monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device: kernel)
-    monkeypatch.setattr(labelprop_cuda, "prop_all",
-                        lambda *a: calls.append(a[0].shape[0]) or propagate_all_reference(*a))
-    cfg = LabelPropConfig(**kw)
-    soft, pred = labelprop.propagate_labels_batched(emb, seeds, cfg, kernel="cuda_resident",
-                                                    device="cpu")
-    chunked, pred_c = labelprop.propagate_labels_batched(
-        emb, seeds, cfg, kernel="cuda_resident", batch_block=2, device="cpu")
-    assert calls == [3, 2, 2]
-    assert torch.equal(soft, chunked) and torch.equal(pred, pred_c)
-    assert torch.equal(soft, twin(emb, seeds, 4, 4, TEMP, 4, (0,)))
-    want, want_pred = jax_batched(jnp.asarray(emb), jnp.asarray(seeds), JaxConfig(**kw), None,
-                                  "pallas_resident_interpret", batch_block=2)
-    assert_matches(chunked, want, want_pred)
-
-
 # (c) tests/test_labelprop_pallas.py::test_resident_kernel_single_frame_returns_seed
 def test_single_frame_returns_the_seed():
     emb, seeds = make_inputs(1, 1, 6, 8, 3, seed=17)

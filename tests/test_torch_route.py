@@ -1,5 +1,5 @@
-"""Routing past the kernels' limits, the `query_block` plain step and the
-int32 class map of `propagate_labels(_batched)` (CPU).
+"""Routing past the kernels' limits and the int32 class map of
+`propagate_labels(_batched)` (CPU).
 
 * `auto` on a CUDA device takes the whole-sequence kernel for one
   radargram and for a batch alike, the per-frame kernel where the
@@ -11,12 +11,6 @@ int32 class map of `propagate_labels(_batched)` (CPU).
   tests/test_torch_resident.py lifts it. With it lifted,
   `PropagationPipeline.__call__` and `reseed` reach the whole-sequence
   wrapper once a call.
-* `query_block` is held to JAX `propagate_labels(kernel='xla',
-  query_block=q)` on tie-heavy inputs and on an N the block does not divide:
-  maps equal, soft labels to rtol 1e-4 / atol 1e-6 (CPU products sum in
-  other orders on the two sides). Against the port's unchunked plain step
-  it is equal bit for bit on dyadic inputs (every dot product exact), and
-  its maps are equal on real-valued ones.
 """
 
 import jax.numpy as jnp
@@ -135,17 +129,17 @@ def test_route_auto_falls_to_the_plain_route_past_the_limits(monkeypatch, seq_fi
     both kernels' limits."""
     asked = fake_card(monkeypatch, select_bytes=None if seq_fits else seq_too_big)
     dims = dict(T=10, N=5, M=3, long_mem=(0,), cxt=4)
-    assert _route("auto", CUDA, None, knn=20, **dims) == kernel
+    assert _route("auto", CUDA, knn=20, **dims) == kernel
     assert asked  # the card was asked before the decision
-    assert _route("auto", CUDA, None, knn=300, **dims) == "torch"
-    assert _route("auto", CUDA, None, knn=20, **{**dims, "M": 200}) == "torch"
+    assert _route("auto", CUDA, knn=300, **dims) == "torch"
+    assert _route("auto", CUDA, knn=20, **{**dims, "M": 200}) == "torch"
     # a kernel chosen by name is never switched: its wrapper raises at launch
     for named in ("cuda", "cuda_seq", "cuda_resident"):
-        assert _route(named, CUDA, None, knn=300, **dims) == named
+        assert _route(named, CUDA, knn=300, **dims) == named
     with pytest.raises(ValueError, match="knn must lie"):
         labelprop_cuda._check_knn(300)
     # the CPU never reaches the predicate
-    assert _route("auto", torch.device("cpu"), None, knn=20, **dims) == "torch"
+    assert _route("auto", torch.device("cpu"), knn=20, **dims) == "torch"
 
 
 def _lift_device_check(monkeypatch, calls):
@@ -248,96 +242,12 @@ def test_pipeline_seed_and_reseed_launch_the_whole_sequence_kernel(monkeypatch, 
     np.testing.assert_array_equal(got.prediction[:, :frame], first.prediction[:, :frame])
 
 
-# -- query_block -----------------------------------------------------------------
-
-
-@pytest.mark.parametrize(
-    "T,N,C,M,cxt,radius,knn,long_mem,ties,qb",
-    [
-        (9, 12, 16, 4, 5, 4, 3, (0,), True, 5),  # tie-heavy, 12 = 5 + 5 + 2
-        (10, 14, 8, 4, 4, 3, 5, (0, 2), True, 4),  # ties + pins + wrap, 14 = 3 * 4 + 2
-        (8, 23, 32, 5, 5, 6, 4, (0,), False, 7),  # 23 = 3 * 7 + 2
-        (6, 16, 32, 4, 10, 4, 3, (0,), False, 1),  # one query at a time
-        (5, 9, 8, 3, 3, 4, 30, (0,), False, 100),  # block above N: one block
-    ],
-)
-def test_query_block_matches_jax(T, N, C, M, cxt, radius, knn, long_mem, ties, qb):
-    rng = np.random.default_rng(T * N + qb)
-    emb = rng.standard_normal((T, N, C)).astype(np.float32)
-    emb = (np.round(emb, 1) if ties else emb / np.linalg.norm(emb, axis=-1, keepdims=True))
-    emb = emb.astype(np.float32)
-    seed = np.eye(M, dtype=np.float32)[rng.integers(0, M, N)]
-    cfg = LabelPropConfig(cxt, radius, 0.1, knn, long_mem)
-    soft, pred = propagate_labels(emb, seed, cfg, kernel="torch", device="cpu", query_block=qb)
-    want, want_pred = jax_propagate(jnp.asarray(emb), jnp.asarray(seed),
-                                    JaxConfig(cxt, radius, 0.1, knn, long_mem), None, "xla",
-                                    query_block=qb)
-    np.testing.assert_allclose(soft.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
-    np.testing.assert_array_equal(pred.numpy(), np.asarray(want_pred))
-    base, base_pred = propagate_labels(emb, seed, cfg, kernel="torch", device="cpu")
-    assert torch.equal(pred, base_pred)
-    np.testing.assert_allclose(soft.numpy(), base.numpy(), rtol=1e-6, atol=1e-7)
-    # 'auto' with a query_block is the plain chunked route
-    auto, _ = propagate_labels(emb, seed, cfg, device="cpu", query_block=qb)
-    assert torch.equal(auto, soft)
-
-
-@pytest.mark.parametrize("qb", [1, 3, 7])
-def test_query_block_equals_the_unchunked_step_on_exact_inputs(qb):
-    """Dyadic embeddings: every dot product is exact in any summation order,
-    so the chunked step equals the unchunked one bit for bit (batched, with
-    pins, a wrapping ring and batch_block too)."""
-    emb, seeds = make_inputs(3, 12, 17, 8, 4, seed=qb, ties=True, soft_seeds=True)
-    cfg = LabelPropConfig(cxt_size=4, radius=5, temperature=0.1, knn=6, long_mem=(0, 3))
-    base, base_pred = propagate_labels_batched(emb, seeds, cfg, kernel="torch", device="cpu")
-    soft, pred = propagate_labels_batched(emb, seeds, cfg, kernel="torch", device="cpu",
-                                          query_block=qb)
-    assert torch.equal(soft, base) and torch.equal(pred, base_pred)
-    chunked, _ = propagate_labels_batched(emb, seeds, cfg, kernel="torch", device="cpu",
-                                          query_block=qb, batch_block=2)
-    assert torch.equal(chunked, base)
-
-
-def test_query_block_peak_is_a_block_of_queries(monkeypatch):
-    """Each step sees at most qb queries: the (K*N, N) affinity of the frame
-    never forms."""
-    widths = []
-    real = labelprop._prop_step_batched
-    monkeypatch.setattr(labelprop, "_prop_step_batched",
-                        lambda f, q, *a: widths.append(q.shape[1]) or real(f, q, *a))
-    emb, seeds = make_inputs(1, 4, 11, 8, 3, seed=5)
-    propagate_labels_batched(emb, seeds, LabelPropConfig(4, 3, 0.1, 4), kernel="torch",
-                             device="cpu", query_block=4)
-    assert widths == [4, 4, 3] * 3
-
-
-def test_query_block_validation(monkeypatch):
-    emb, seeds = make_inputs(1, 4, 6, 8, 3, seed=6)
-    cfg = LabelPropConfig(4, 3, 0.1, 4)
-    for bad in (0, -2):
-        with pytest.raises(ValueError, match="query_block must be >= 1"):
-            propagate_labels(emb[0], seeds[0], cfg, kernel="torch", device="cpu",
-                             query_block=bad)
-    dims = dict(T=4, N=6, M=3, knn=4, long_mem=(0,), cxt=4)
-    fake_card(monkeypatch)
-    for named in ("cuda", "cuda_seq", "cuda_resident"):
-        with pytest.raises(ValueError, match="query_block applies to the plain route"):
-            _route(named, CUDA, 4, **dims)
-    assert _route("auto", CUDA, 4, **dims) == "torch"
-    # through the entry point, device check lifted
-    monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device: kernel)
-    with pytest.raises(ValueError, match="query_block applies to the plain route"):
-        propagate_labels_batched(emb, seeds, cfg, kernel="cuda_seq", device="cpu",
-                                 query_block=2)
-
-
 def test_pred_is_int32():
     emb, seeds = make_inputs(2, 5, 6, 8, 3, seed=7)
     cfg = LabelPropConfig(4, 3, 0.1, 4)
     _, pred = propagate_labels(emb[0], seeds[0], cfg, device="cpu")
     _, pred_b = propagate_labels_batched(emb, seeds, cfg, device="cpu")
-    _, pred_c = propagate_labels_batched(emb, seeds, cfg, device="cpu", batch_block=1)
-    assert pred.dtype == pred_b.dtype == pred_c.dtype == torch.int32
+    assert pred.dtype == pred_b.dtype == torch.int32
     mask = torch.as_tensor(radius_mask(6, 1, 3))
     soft = propagate_seq_reference(torch.as_tensor(emb), torch.as_tensor(seeds), mask, (0,), 4,
                                    0.1, 4)

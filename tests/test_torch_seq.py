@@ -110,21 +110,6 @@ def test_single_frame_returns_the_seeds():
     np.testing.assert_array_equal(pred.numpy(), seeds.argmax(-1)[:, None])
 
 
-def test_batch_block_equals_the_unchunked_call():
-    """batch_block=2 over R=3: a trailing chunk padded with item 0 and its
-    output dropped; the results equal the unchunked call and JAX's."""
-    emb, seeds = make_inputs(3, 5, 7, 8, 3, seed=11)
-    cfg = LabelPropConfig(cxt_size=3, radius=3, temperature=TEMP, knn=3)
-    a = propagate_labels_batched(emb, seeds, cfg, device="cpu")
-    b = propagate_labels_batched(emb, seeds, cfg, batch_block=2, device="cpu")
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    want, _ = jax_batched(jnp.asarray(emb), jnp.asarray(seeds), JaxConfig(3, 3, TEMP, 3), None,
-                          "pallas_seq_interpret", batch_block=2)
-    assert_matches(b[0], b[1], want)
-    with pytest.raises(ValueError, match="batch_block"):
-        propagate_labels_batched(emb, seeds, cfg, batch_block=0, device="cpu")
-
-
 def test_kernel_whitelist_and_device():
     emb, seeds = make_inputs(2, 3, 4, 8, 2, seed=1)
     cfg = LabelPropConfig(cxt_size=2, radius=2, temperature=0.1, knn=2)

@@ -245,11 +245,7 @@ def test_survey_forward_matches_jax_and_own_paths(fixture, generic):
     got, ch_got = tp.propagate_survey(ds, ids, refs, detect_change=True)
     _agree(got, want)
     assert ch_got == ch_want
-    # the port's survey is its own host-staged batch and its sequential path
-    seqs = np.stack([ds[i] for i in ids])
-    base, ch_base = tp.propagate_batch(seqs, refs, detect_change=True)
-    np.testing.assert_array_equal(base, got)
-    assert ch_base == ch_got
+    # the port's survey is its per-radargram path, radargram by radargram
     for k, (i, r) in enumerate(zip(ids, refs)):
         res = tp(ds[i], r)
         np.testing.assert_array_equal(got[k], res.prediction, err_msg=f"rg {k}")
@@ -261,14 +257,13 @@ def test_survey_reverse_and_xent_match_jax(fixture, generic):
     jp, tp = generic
     rev = tp.propagate_survey(ds, ids, refs, use_last=True)
     _agree(rev, jp.propagate_survey(jds, ids, refs, use_last=True))
-    seqs = np.stack([ds[i] for i in ids])
-    np.testing.assert_array_equal(tp.propagate_batch(seqs, refs, use_last=True), rev)
     pred, xent = tp.propagate_survey(ds, ids, refs, return_xent=True)
     _, jxent = jp.propagate_survey(jds, ids, refs, return_xent=True)
     assert xent.shape == (len(ids), ds.geo.nh, T - 1)
     np.testing.assert_allclose(xent, np.asarray(jxent), rtol=0, atol=1e-4)
-    _, bxent = tp.propagate_batch(seqs, refs, return_xent=True)
-    np.testing.assert_array_equal(bxent, xent)
+    for k, (i, r) in enumerate(zip(ids, refs)):
+        np.testing.assert_array_equal(tp(ds[i], r, use_last=True).prediction, rev[k])
+        np.testing.assert_array_equal(tp(ds[i], r, detect_change=False).xent, xent[k])
 
 
 def test_survey_correction_head_and_tail_match_jax(fixture, generic):
@@ -276,13 +271,15 @@ def test_survey_correction_head_and_tail_match_jax(fixture, generic):
     jp, tp = generic
     head = tp.propagate_survey(ds, ids, refs, length=5)
     _agree(head, jp.propagate_survey(jds, ids, refs, length=5))
-    np.testing.assert_array_equal(
-        head, tp.propagate_batch(np.stack([ds.get_smaller_item(i, 5) for i in ids]), refs))
+    for k, (i, r) in enumerate(zip(ids, refs)):
+        np.testing.assert_array_equal(
+            head[k], tp(ds.get_smaller_item(i, 5), r, detect_change=False).prediction)
     ci = 3
     tail = tp.propagate_survey(ds, ids, refs, length=T - ci, frame_offsets=[ci] * len(ids))
     _agree(tail, jp.propagate_survey(jds, ids, refs, length=T - ci,
                                      frame_offsets=[ci] * len(ids)))
-    np.testing.assert_array_equal(tail, tp.propagate_batch(np.stack([ds[i][ci:] for i in ids]), refs))
+    for k, (i, r) in enumerate(zip(ids, refs)):
+        np.testing.assert_array_equal(tail[k], tp(ds[i][ci:], r, detect_change=False).prediction)
 
 
 def test_survey_margin_fixture_maps_equal(fixture, models):

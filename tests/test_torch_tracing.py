@@ -77,21 +77,19 @@ def test_seed_call_spans_nest_in_the_caller(window, pipe):
         assert caller[1] <= start and end <= caller[2], name
 
 
-@pytest.mark.parametrize("kernel,batch_block", [
-    ("torch", None), ("torch", 1), ("cuda", None), ("cuda_seq", None)])
-def test_one_frames_span_a_propagation_call(monkeypatch, kernel, batch_block):
+@pytest.mark.parametrize("kernel", ["torch", "cuda", "cuda_seq"])
+def test_one_frames_span_a_propagation_call(monkeypatch, kernel):
     """`crw.frames` encloses the whole propagation call on every route, once
-    a call and never nested: the plain route whole and in chunks, the
-    per-frame route over two radargrams, the whole-sequence route (device
-    check lifted: the kernels' wrappers run their twins on CPU tensors)."""
+    a call and never nested: the plain route, the per-frame route over two
+    radargrams, the whole-sequence route (device check lifted: the kernels'
+    wrappers run their twins on CPU tensors)."""
     monkeypatch.setattr(labelprop, "resolve_kernel", lambda kernel, device: kernel)
     rng = np.random.default_rng(1)
     emb = torch.nn.functional.normalize(torch.as_tensor(rng.standard_normal((2, T, 6, 8)),
                                                         dtype=torch.float32), dim=-1)
     seeds = torch.eye(NCLS)[rng.integers(0, NCLS, (2, 6))]
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        labelprop.propagate_labels_batched(emb, seeds, LP, kernel=kernel,
-                                           batch_block=batch_block, device="cpu")
+        labelprop.propagate_labels_batched(emb, seeds, LP, kernel=kernel, device="cpu")
     assert [e[0] for e in _crw(prof)] == ["crw.frames"]
 
 
