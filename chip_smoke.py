@@ -101,6 +101,16 @@ Phases, one line each, any failure exits non-zero:
      bit, then per call the elapsed ms of CUDA events around 20 calls and
      the host's wall ms (median of 20 synchronized calls), each after a
      warm-up; the table in chiprun_out/route_b1.json;
+ 11c. bn_eval, bn_fold: the ResNet-10 encoder's 13 eval BatchNorms at a
+     seed request's (11,300 patches) and a survey pass's (315,000) shapes
+     through cuDNN's inference kernel, the native one and the bias add
+     that the fold leaves (CUDA events), the kernel `F.batch_norm` takes
+     at each batch and at ATen's cuDNN limit; the encoder's folded eval
+     forward against the plain one at both batches (device ms,
+     embeddings within 1e-5, no BatchNorm kernel); the `bn_fold`
+     counter's engagement share over a SHARAD seed->map and a Miguel
+     survey pass (1) and a CRW training step (0); the tables in
+     chiprun_out/bn_eval.json;
  12. train_vs_cpu: the CRW trainer (float32, TF32 off) on the card
      against the same trainer on the CPU, one init, one batch schedule
      (B = 2, T = 5, N = 6): one ResNet-10 step with the two-pass batch
@@ -837,6 +847,204 @@ def route_b1_phase(smi):
     return rows
 
 
+BN_EVAL_PATCHES = {"seed": 113 * 100, "survey": 63 * 100 * 50}  # a SHARAD window, a Miguel pass
+CUDNN_EVAL_MAX_N = 65535  # ATen's cuDNN eval batch-norm limit on the batch (Normalization.cpp)
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of fn launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.key[:70] for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def bn_eval_timing(smi):
+    """Phase 11c, part 1: the ResNet-10 encoder's 13 eval BatchNorms at a
+    seed request's and a survey pass's shapes, three ways: cuDNN's
+    inference kernel (`torch.cudnn_batch_norm`), the native one
+    (`torch.native_batch_norm`) and what the fold leaves of them, the bias
+    add that ATen's convolution makes (`y.add_(b)`). CUDA events around 5
+    calls after 2 warm-up ones; bound: x read and y written once at 3.35
+    TB/s. Also which kernel `F.batch_norm` launches at each batch and at
+    ATen's cuDNN limit. Returns the rows, their sums a cell and the
+    dispatch table."""
+    import torch.nn.functional as F
+
+    rows, dispatch = [], {}
+    for cell, patches in BN_EVAL_PATCHES.items():
+        for shape in bn_shapes(patches):
+            C = shape[1]
+            x = torch.randn(shape, device="cuda")
+            w, b = torch.rand(C, device="cuda") + 0.5, torch.randn(C, device="cuda")
+            rm, rv = torch.randn(C, device="cuda"), torch.rand(C, device="cuda") + 0.5
+            y = torch.empty_like(x)
+            row = {"cell": cell, "shape": list(shape),
+                   "bound_ms": 2 * x.numel() * 4 / PEAK_BYTES * 1e3}
+            ways = {
+                "cudnn": lambda: torch.cudnn_batch_norm(x, w, b, rm, rv, False, 0.1, 1e-5),
+                "native": lambda: torch.native_batch_norm(x, w, b, rm, rv, False, 0.1, 1e-5),
+                "bias_add": lambda: y.add_(b[:, None, None]),
+            }
+            for way, fn in ways.items():
+                try:
+                    row[f"{way}_ms"] = cuda_ms(fn, iters=5, warmup=2)
+                except RuntimeError as e:  # cuDNN past its limits
+                    row[f"{way}_ms"], row[f"{way}_error"] = None, str(e).splitlines()[0]
+            rows.append(row)
+            del x, y
+        x = torch.randn(bn_shapes(patches)[-1], device="cuda")
+        C = x.shape[1]
+        ones, zeros = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+        dispatch[cell] = device_kernels(lambda: F.batch_norm(x, zeros, ones, ones, zeros))
+    for n in (CUDNN_EVAL_MAX_N, CUDNN_EVAL_MAX_N + 1):
+        x = torch.randn((n, 512, 1, 1), device="cuda")
+        ones, zeros = torch.ones(512, device="cuda"), torch.zeros(512, device="cuda")
+        dispatch[f"N={n}"] = device_kernels(lambda: F.batch_norm(x, zeros, ones, ones, zeros))
+    del x
+    torch.cuda.empty_cache()
+    totals = {}
+    for cell in BN_EVAL_PATCHES:
+        for key in ("bound_ms", "cudnn_ms", "native_ms", "bias_add_ms"):
+            vals = [r[key] for r in rows if r["cell"] == cell]
+            totals[f"{cell}_{key}"] = None if None in vals else sum(vals)
+    phase("bn_eval", f"{smi} | 13 eval BatchNorms summed: "
+          + " ".join(f"{k}={v if v is None else round(v, 4)}" for k, v in totals.items()))
+    for k, v in dispatch.items():
+        phase("bn_eval", f"F.batch_norm eval at {k}: {v}")
+    return rows, totals, dispatch
+
+
+FOLD_ATOL = 1e-5  # L2-normalised embeddings, folded forward vs the float64 one
+FOLD_REF_PATCHES = 2048
+
+
+def encoder_float64(model, x):
+    """The ResNet-10 encoder's eval forward in float64, written out: each
+    convolution, then eval `F.batch_norm` with the running statistics."""
+    import torch.nn.functional as F
+
+    def conv_bn(conv, bn, h, stride, padding):
+        bias = None if conv.bias is None else conv.bias.double()
+        h = F.conv2d(h, conv.weight.double(), bias, stride, padding)
+        return F.batch_norm(h, bn.running_mean.double(), bn.running_var.double(),
+                            bn.weight.double(), bn.bias.double(), False, 0.0, bn.eps)
+
+    h = F.relu(conv_bn(model.fc0, model.bn0, x.double(), 1, 1))
+    core = model.model
+    h = F.max_pool2d(F.relu(conv_bn(core.conv1, core.bn1, h, 2, 3)), 3, 2, 1)
+    for stage in range(4):
+        block = getattr(core, f"layer{stage + 1}")[0]
+        stride = 1 if stage == 0 else 2
+        identity = h if block.downsample is None else conv_bn(
+            block.downsample[0], block.downsample[1], h, stride, 0)
+        y = F.relu(conv_bn(block.conv1, block.bn1, h, stride, 1))
+        h = F.relu(conv_bn(block.conv2, block.bn2, y, 1, 1) + identity)
+    return F.linear(h.mean(dim=(2, 3)), core.fc.weight.double(), core.fc.bias.double())
+
+
+def bn_fold_phase(smi):
+    """Phase 11c, part 2: the ResNet-10 encoder's eval forward with each
+    BatchNorm folded into its convolution (models/encoders.py) against the
+    plain forward (convolution, then eval BatchNorm) at a seed request's and
+    a survey pass's batch of SHARAD window 0's patches, the running
+    statistics those of the window's own batch: CUDA events around 5 calls
+    after 2 warm-up ones; no BatchNorm kernel in the folded forward; on the
+    first 2,048 patches, the L2-normalised embeddings of both against
+    `encoder_float64`, the folded ones within FOLD_ATOL or twice the plain
+    ones' error. Then `encoders.bn_fold` over a SHARAD
+    seed->map (T = 100, N = 113), a Miguel survey pass of 63 radargrams and
+    a CRW training step: engagement shares 1, 1 and 0."""
+    from radar_sounder_crw_tpu_torch.data import create_dataset, get_reference
+    from radar_sounder_crw_tpu_torch.infer import PropagationPipeline
+    from radar_sounder_crw_tpu_torch.models import create_model, encoders
+    from radar_sounder_crw_tpu_torch.models.resnet import f32_head
+    from radar_sounder_crw_tpu_torch.ops.labelprop import LabelPropConfig
+    from radar_sounder_crw_tpu_torch.utils import parity_mode
+
+    parity_mode()  # float32 convolutions, TF32 off, as main sets it
+    ds = create_dataset(full=True, id=3, length=100, dim=(16, 16), overlap=(8, 0))
+    nclasses, seg = get_reference(id=3, h=ds.geo.nh * 16, w=0, length=100, dim=(16, 16))
+    seq = torch.as_tensor(ds[0], device="cuda")
+    window = seq.reshape(-1, 1, 16, 16)
+    model = create_model(1, False, device="cuda").train()
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.momentum = 1.0  # the batch's own statistics
+    with torch.no_grad():
+        model(window)
+    for m in bns:
+        m.momentum = 0.1
+    model.eval()
+
+    def plain(x):
+        enc = model
+        return f32_head(enc.model.fc, enc.model.features(enc.relu(enc.bn0(enc.fc0(x)))))
+
+    def unit(e):
+        return (e / e.norm(dim=-1, keepdim=True)).double()
+
+    result = {}
+    with torch.no_grad():
+        x = window[:FOLD_REF_PATCHES]
+        want = unit(encoder_float64(model, x))
+        err = {"folded": (unit(model(x)) - want).abs().max().item(),
+               "plain": (unit(plain(x)) - want).abs().max().item()}
+        result.update({f"{k}_max_abs_err_vs_float64": v for k, v in err.items()})
+        phase("bn_fold", f"embeddings of {len(x)} patches against the float64 forward: max abs "
+              f"diff folded {err['folded']:.3g}, plain {err['plain']:.3g}")
+        if err["folded"] > max(FOLD_ATOL, 2 * err["plain"]):
+            raise SystemExit("bn_fold: the folded forward adds error beyond float32's")
+        for cell, n in BN_EVAL_PATCHES.items():
+            x = window.repeat(-(-n // len(window)), 1, 1, 1)[:n]
+            kernels = device_kernels(lambda: model(x))
+            result[f"{cell}_plain_ms"] = cuda_ms(lambda: plain(x), iters=5, warmup=2)
+            result[f"{cell}_folded_ms"] = cuda_ms(lambda: model(x), iters=5, warmup=2)
+            bn_kernels = [k for k in kernels if "bn_" in k or "batch_norm" in k]
+            phase("bn_fold", f"{smi} | {cell} batch of {n}: plain "
+                  f"{result[f'{cell}_plain_ms']:.3f} ms, folded "
+                  f"{result[f'{cell}_folded_ms']:.3f} ms; BatchNorm kernels in the folded "
+                  f"forward {bn_kernels}")
+            if bn_kernels:
+                raise SystemExit(f"bn_fold {cell}: the folded forward kept a BatchNorm")
+            del x
+    torch.cuda.empty_cache()
+
+    def share(fn):
+        before = dict(encoders.bn_fold)
+        fn()
+        torch.cuda.synchronize()
+        folded, plain_n = (encoders.bn_fold[k] - before[k] for k in ("folded", "plain"))
+        return folded / (folded + plain_n), folded + plain_n
+
+    cfg = LabelPropConfig(cxt_size=100, radius=10, temperature=0.1, knn=20)
+    pipe = PropagationPipeline(model, cfg, nclasses)
+    seg_ref = seg[: ds.geo.rg_h(), : ds.geo.w]
+    pipe(seq, seg_ref)  # warm-up
+    mds, ids, refs, _, mclasses = miguel_survey()
+    survey = PropagationPipeline(create_model(1, False, device="cuda"), cfg, mclasses,
+                                 cache_embeddings=False)
+    survey.propagate_survey(mds, ids[:2], refs[:2])  # warm-up
+    trainer = bench_trainer(torch.float32)
+    batch, _ = bench_batch()
+    trainer.init_state(tuple(batch.shape[1:]))
+    paths = {"seed_to_map": lambda: pipe(seq, seg_ref, detect_change=True),
+             "survey_pass": lambda: survey.propagate_survey(mds, ids, refs),
+             "train_step": lambda: trainer.train_step(batch)}
+    for name, fn in paths.items():
+        result[f"{name}_share"], result[f"{name}_forwards"] = share(fn)
+    phase("bn_fold", "engagement folded / (folded + plain): " + ", ".join(
+        f"{name} {result[f'{name}_share']:.2f} of {result[f'{name}_forwards']} forwards"
+        for name in paths))
+    if [result[f"{name}_share"] for name in paths] != [1.0, 1.0, 0.0]:
+        raise SystemExit("bn_fold: the fold engaged where it should not or missed where it should")
+    return result
+
+
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bfloat16 tensor cores, dense
 TRAIN_STEP1_RTOL = 5e-5  # tests/test_torch_train.py: one ResNet step, two-pass variance
 TRAIN_EARLY, TRAIN_ENVELOPE = 5e-6, 2e-4  # tests/test_torch_train.py: CNN K-step losses
@@ -1003,7 +1211,7 @@ def bn_shapes(patches):
     `patches` 16x16 patches, read by forward hooks."""
     from radar_sounder_crw_tpu_torch.models import BatchNorm, create_model
 
-    model = create_model(1, False, device="cuda")
+    model = create_model(1, False, device="cuda").train()  # eval folds the BatchNorms away
     shapes = []
     hooks = [m.register_forward_hook(lambda m, inp, out: shapes.append(tuple(inp[0].shape)))
              for m in model.modules() if isinstance(m, BatchNorm)]
@@ -2250,6 +2458,9 @@ def main() -> int:
     annotate_launches, annotate_ms = annotate_phase()
     cli_times.update(annotate_ms)
     route_b1 = route_b1_phase(smi)
+    bn_eval = dict(zip(("rows", "totals", "dispatch"), bn_eval_timing(smi)))
+    bn_eval["fold"] = bn_fold_phase(smi)
+    (OUT / "bn_eval.json").write_text(json.dumps({"card": smi, **bn_eval}, indent=1))
     phase("times", f"{smi} | " + " ".join(f"{k}={v:.4f}" for k, v in cli_times.items()))
 
     # 12-18. training -------------------------------------------------------------
@@ -2370,7 +2581,7 @@ def main() -> int:
         "library_device_ms_f32": bn["totals"]["f32"][f"{name}_device_library_ms"],
     } for name in BN_KERNELS], "bn_totals": bn["totals"], "times": times, "survey_times": survey_times, "cli_times": cli_times,
         "train_times": train_times, "launch_times": launch_times, "data_parallel": parallel,
-        "route_b1": route_b1}))
+        "route_b1": route_b1, "bn_eval": {k: bn_eval[k] for k in ("totals", "fold")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0

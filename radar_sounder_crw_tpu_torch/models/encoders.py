@@ -13,6 +13,11 @@ radar_sounder_crw_tpu/models/encoders.py, quirks included:
 A compute dtype of bfloat16 works as flax's `dtype` does: the parameters
 stay float32, the convolutions and BatchNorm run under `torch.autocast`,
 and the head `fc` runs in float32, so the embeddings come out float32.
+
+The ResNet's eval forward at float32 runs each convolution with its
+BatchNorm folded in (models/resnet.py `fold_conv_bn`) and no BatchNorm;
+`bn_fold` counts the forwards that took the fold ("folded"), those that
+did not ("plain", the CNN's too) and the folds built ("builds").
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .resnet import ResNetCore, f32_head, make_norm
+from .resnet import ResNetCore, conv_bn, f32_head, fold_conv_bn, make_norm
+
+bn_fold = {"folded": 0, "plain": 0, "builds": 0}
 
 
 class _Encoder(nn.Module):
@@ -55,6 +62,7 @@ class CNNEncoder(_Encoder):
         self.fc = nn.Linear(128, embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bn_fold["plain"] += 1
         with self._autocast(x):
             x = self.pool(self.relu(self.conv1(x)))
             x = self.pool(self.relu(self.conv2(x)))
@@ -76,11 +84,46 @@ class ResNetEncoder(_Encoder):
         self.bn0 = make_norm(fused_bn, 3)
         self.relu = nn.ReLU(inplace=True)
         self.model = ResNetCore(stage_sizes=stage_sizes, num_classes=embed_dim, fused_bn=fused_bn)
+        self._fold = None  # (key, conv -> folded weight and bias); not state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fold = self._eval_fold()
+        bn_fold["plain" if fold is None else "folded"] += 1
         with self._autocast(x):
-            feat = self.model.features(self.relu(self.bn0(self.fc0(x))))
+            feat = self.model.features(self.relu(conv_bn(self.fc0, self.bn0, x, fold)), fold)
         return f32_head(self.model.fc, feat)
+
+    def train(self, mode: bool = True):
+        if mode:  # train steps replayed from a CUDA graph change weights unseen by _version
+            self._fold = None
+        return super().train(mode)
+
+    def _eval_fold(self):
+        """Each convolution with its BatchNorm folded in, where the eval
+        forward may take them: the encoder and every BatchNorm in eval mode
+        with running statistics, float32 compute, and no gradient asked of
+        the parameters (the folded tensors carry none); else None. Built again when a
+        source tensor moved or changed in place (its data_ptr and _version)
+        or an eps changed."""
+        if self.training or self.compute_dtype != torch.float32:
+            return None
+        pairs = [(self.fc0, self.bn0), *self.model.conv_bn_pairs()]
+        grad = torch.is_grad_enabled()
+        key = []
+        for conv, bn in pairs:
+            if bn.training or bn.running_mean is None or bn.running_var is None:
+                return None
+            key.append(bn.eps)
+            for t in (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var):
+                if t is None:
+                    continue
+                if grad and t.requires_grad:
+                    return None
+                key.append((t.data_ptr(), t._version))
+        if self._fold is None or self._fold[0] != key:
+            self._fold = key, {conv: fold_conv_bn(conv, bn) for conv, bn in pairs}
+            bn_fold["builds"] += 1
+        return self._fold[1]
 
 
 def _init_weights(model: nn.Module, generator: torch.Generator) -> None:

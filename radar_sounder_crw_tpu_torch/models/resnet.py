@@ -4,11 +4,12 @@ port model trains with.
 
 Follows radar_sounder_crw_tpu/models/resnet.py (`BasicBlock`, `ResNetCore`,
 `make_norm`: flax's rule, two-pass, and models/fused_bn.py's `fused` and
-`lean`) with the plain 7x7/stride-2 stem only; the JAX package's
-space-to-depth stem and batch-minor layout are TPU layout work and compute
-the same function. Submodule names are the reference state_dict names
-(`conv1`, `bn1`, `layer2.0.downsample.0`, `fc`), so weights load with
-`strict=True`.
+`lean`) with the plain 7x7/stride-2 stem only, and the eval-mode fold of
+each BatchNorm into the convolution before it (`fold_conv_bn`, `conv_bn`);
+the JAX package's space-to-depth stem and batch-minor layout are TPU layout
+work and compute the same function. Submodule names are the reference
+state_dict names (`conv1`, `bn1`, `layer2.0.downsample.0`, `fc`), so
+weights load with `strict=True`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import contextlib
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import all_reduce_sum
@@ -158,6 +160,29 @@ def f32_head(fc: nn.Module, feat: torch.Tensor) -> torch.Tensor:
         return fc(feat.float())
 
 
+def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> tuple[torch.Tensor, torch.Tensor]:
+    """`conv` followed by `bn` in eval mode as one convolution's (weight,
+    bias): W' = W s and b' = (b - running_mean) s + beta per output channel,
+    s = gamma / sqrt(running_var + eps), b = 0 where `conv` has no bias;
+    computed in float64, stored in float32."""
+    with torch.no_grad():
+        s = bn.weight.double() / torch.sqrt(bn.running_var.double() + bn.eps)
+        shift = -bn.running_mean.double()
+        if conv.bias is not None:
+            shift = shift + conv.bias.double()
+        weight = conv.weight.double() * s[:, None, None, None]
+        return weight.float(), (shift * s + bn.bias.double()).float()
+
+
+def conv_bn(conv: nn.Conv2d, bn: nn.Module, x: torch.Tensor, fold=None) -> torch.Tensor:
+    """bn(conv(x)); with `fold` (conv -> `fold_conv_bn(conv, bn)`) the one
+    convolution that equals it in eval mode."""
+    if fold is None:
+        return bn(conv(x))
+    weight, bias = fold[conv]
+    return F.conv2d(x, weight, bias, conv.stride, conv.padding, conv.dilation, conv.groups)
+
+
 class BasicBlock(nn.Module):
     """Two 3x3 convs with a residual connection (expansion 1)."""
 
@@ -178,10 +203,10 @@ class BasicBlock(nn.Module):
             else None
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        y = self.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x: torch.Tensor, fold=None) -> torch.Tensor:
+        identity = x if self.downsample is None else conv_bn(*self.downsample, x, fold)
+        y = self.relu(conv_bn(self.conv1, self.bn1, x, fold))
+        y = conv_bn(self.conv2, self.bn2, y, fold)
         return self.relu(y + identity)
 
 
@@ -214,11 +239,26 @@ class ResNetCore(nn.Module):
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """Everything before the head: the globally pooled (B, C) map."""
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+    def blocks(self) -> list[BasicBlock]:
+        """The BasicBlocks of every stage, in order."""
+        return [block for stage in range(self.num_stages)
+                for block in getattr(self, f"layer{stage + 1}")]
+
+    def conv_bn_pairs(self) -> list[tuple[nn.Conv2d, nn.Module]]:
+        """Every BatchNorm with the convolution whose output it normalises."""
+        pairs = [(self.conv1, self.bn1)]
+        for block in self.blocks():
+            pairs += [(block.conv1, block.bn1), (block.conv2, block.bn2)]
+            if block.downsample is not None:
+                pairs.append(tuple(block.downsample))
+        return pairs
+
+    def features(self, x: torch.Tensor, fold=None) -> torch.Tensor:
+        """Everything before the head: the globally pooled (B, C) map;
+        `fold` as in `conv_bn`."""
+        x = self.maxpool(self.relu(conv_bn(self.conv1, self.bn1, x, fold)))
+        for block in self.blocks():
+            x = block(x, fold)
         return x.mean(dim=(2, 3))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
