@@ -17,7 +17,9 @@ and the head `fc` runs in float32, so the embeddings come out float32.
 The ResNet's eval forward at float32 runs each convolution with its
 BatchNorm folded in (models/resnet.py `fold_conv_bn`) and no BatchNorm;
 `bn_fold` counts the forwards that took the fold ("folded"), those that
-did not ("plain", the CNN's too) and the folds built ("builds").
+did not ("plain", the CNN's too) and the folds built ("builds"). Training
+at float32 with the two-pass BatchNorm, the ResNet's stem (`fc0`, `bn0`)
+runs in float64 (`ResNetEncoder._stem`).
 """
 
 from __future__ import annotations
@@ -25,10 +27,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
-from .resnet import ResNetCore, conv_bn, f32_head, fold_conv_bn, make_norm
+from .resnet import BatchNorm, ResNetCore, conv_bn, f32_head, fold_conv_bn, make_norm
 
 bn_fold = {"folded": 0, "plain": 0, "builds": 0}
 
@@ -84,14 +87,32 @@ class ResNetEncoder(_Encoder):
         self.bn0 = make_norm(fused_bn, 3)
         self.relu = nn.ReLU(inplace=True)
         self.model = ResNetCore(stage_sizes=stage_sizes, num_classes=embed_dim, fused_bn=fused_bn)
-        self._fold = None  # (key, conv -> folded weight and bias); not state
+        self._fold = None  # (key, conv -> folded weight and bias, and the
+        # small-map GEMMs' operands by (conv, H, W)); not state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fold = self._eval_fold()
         bn_fold["plain" if fold is None else "folded"] += 1
         with self._autocast(x):
-            feat = self.model.features(self.relu(conv_bn(self.fc0, self.bn0, x, fold)), fold)
+            feat = self.model.features(self.relu(self._stem(x, fold)), fold)
         return f32_head(self.model.fc, feat)
+
+    def _stem(self, x: torch.Tensor, fold) -> torch.Tensor:
+        """bn0(fc0(x)) (`conv_bn`). Training at float32 with the two-pass
+        BatchNorm (`make_norm('twopass')`, the rule chosen for its exact
+        statistics), both run in float64 and round once, at the end: bn0's
+        batch statistics make the stem invariant to fc0's scale, so fc0's
+        true weight gradient is eps-sized and all cancellation, and float32
+        leaves it 1.7e-3 to 5.8e-3 from a float64 encoder's, with the thread
+        count (JAX's float32 encoder 1.5e-3); float64 leaves ~1e-5. The
+        one-pass rule (the default), the fused and lean BatchNorms and
+        bfloat16 keep the float32 stem."""
+        fc0, bn0 = self.fc0, self.bn0
+        if not (self.training and bn0.training and type(bn0) is BatchNorm and bn0.twopass
+                and self.compute_dtype == torch.float32):
+            return conv_bn(fc0, bn0, x, fold)
+        z = F.conv2d(x.double(), fc0.weight.double(), fc0.bias.double(), fc0.stride, fc0.padding)
+        return bn0(z).float()
 
     def train(self, mode: bool = True):
         if mode:  # train steps replayed from a CUDA graph change weights unseen by _version

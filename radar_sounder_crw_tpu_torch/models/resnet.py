@@ -7,9 +7,15 @@ Follows radar_sounder_crw_tpu/models/resnet.py (`BasicBlock`, `ResNetCore`,
 `lean`) with the plain 7x7/stride-2 stem only, and the eval-mode fold of
 each BatchNorm into the convolution before it (`fold_conv_bn`, `conv_bn`);
 the JAX package's space-to-depth stem and batch-minor layout are TPU layout
-work and compute the same function. Submodule names are the reference
-state_dict names (`conv1`, `bn1`, `layer2.0.downsample.0`, `fc`), so
-weights load with `strict=True`.
+work and compute the same function. A convolution on a map of no more
+pixels than its kernel has taps (on 16 x 16 patches `layer2.conv2`,
+`layer3` and `layer4`'s 3x3 ones) is one dense linear map: its data and
+weight gradients run as float32 GEMMs against its unrolled weight
+(`SmallMapConv`; cuDNN has no fast float32 backward for these maps), and a
+forward that autograd does not record runs as one such GEMM
+(`small_map_conv`), the same sums less the products with the zero padding.
+Submodule names are the reference state_dict names (`conv1`, `bn1`,
+`layer2.0.downsample.0`, `fc`), so weights load with `strict=True`.
 """
 
 from __future__ import annotations
@@ -26,15 +32,19 @@ from ..parallel.mesh import all_reduce_sum
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax momentum 0.9
 
+small_map_convs = {"gemm": 0, "cudnn": 0}  # convolutions run by conv_bn: GEMM, other
+_selections: dict = {}  # small-map selection tensors (_selection)
+
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d with flax's `nn.BatchNorm` rule in train mode.
 
     In train mode the batch statistics are computed in float32 (whatever
-    the input dtype), the variance one-pass as max(0, E[x^2] - E[x]^2)
-    (flax's `use_fast_variance=True`; `twopass=True` gives E[(x - mean)^2]),
-    the output is (x - mean) * (rsqrt(var + eps) * weight) + bias, and the
-    running statistics blend the BIASED batch variance:
+    the input dtype; a float64 input in float64), the variance one-pass as
+    max(0, E[x^2] - E[x]^2) (flax's `use_fast_variance=True`; `twopass=True`
+    gives E[(x - mean)^2]), the output is
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, and the running
+    statistics blend the BIASED batch variance:
     r <- 0.9 r + 0.1 batch. `nn.BatchNorm2d` blends the unbiased one, n/(n-1)
     larger. The buffers are left alone when `track_running_stats` is False
     (`frozen_statistics`). In eval mode the module is `nn.BatchNorm2d` (a
@@ -54,7 +64,7 @@ class BatchNorm(nn.BatchNorm2d):
             if x.dtype == torch.float32:
                 return super().forward(x)
             return super().forward(x.float()).to(x.dtype)
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         if self.stats_mesh is not None:
             mean, var = _cross_rank_moments(xf, self.stats_mesh, self.twopass)
         elif self.twopass:
@@ -80,10 +90,10 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 def _cross_rank_moments(xf: torch.Tensor, mesh, twopass: bool):
-    """Per-channel float32 mean and biased variance of the batch of every
-    rank of `mesh` (equal shards, so the batch's moments are the mean of the
-    ranks'): flax's one-pass rule from E[x] and E[x^2] all-reduced in one
-    call, or with `twopass` E[x] first, then E[(x - mean)^2]. The
+    """Per-channel mean and biased variance, at xf's dtype, of the batch of
+    every rank of `mesh` (equal shards, so the batch's moments are the mean
+    of the ranks'): flax's one-pass rule from E[x] and E[x^2] all-reduced
+    in one call, or with `twopass` E[x] first, then E[(x - mean)^2]. The
     all-reduce carries the gradient; over one rank the arithmetic is the
     local rule's, bit for bit."""
     dims = (0, 2, 3)
@@ -174,13 +184,130 @@ def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> tuple[torch.Tensor, tor
         return weight.float(), (shift * s + bn.bias.double()).float()
 
 
+def small_map(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+    """Whether `conv` on `x` takes the small-map GEMMs (`SmallMapConv`,
+    `small_map_conv`): a dense, undilated, zero-padded convolution whose
+    kernel has more than one tap and at least as many taps as the input map
+    has pixels, so that the dense product does no more multiply-adds than
+    the convolution."""
+    kh, kw = conv.kernel_size
+    return (conv.groups == 1 and conv.dilation == (1, 1) and conv.padding_mode == "zeros"
+            and 1 < kh * kw and x.shape[-2] * x.shape[-1] <= kh * kw)
+
+
+def _out_hw(conv: nn.Conv2d, height: int, width: int) -> tuple[int, int]:
+    (kh, kw), (sh, sw), (ph, pw) = conv.kernel_size, conv.stride, conv.padding
+    return (height + 2 * ph - kh) // sh + 1, (width + 2 * pw - kw) // sw + 1
+
+
+def _selection(conv: nn.Conv2d, height: int, width: int, device, dtype) -> torch.Tensor:
+    """S[q, p, t] = 1 where tap t of `conv`'s kernel links input pixel q of
+    a height x width map to output pixel p, else 0 (the zero padding);
+    built on the host once per geometry, device and dtype, and kept (a CUDA
+    graph may hold it)."""
+    key = (conv.kernel_size, conv.stride, conv.padding, height, width, device, dtype)
+    sel = _selections.get(key)
+    if sel is None:
+        (kh, kw), (sh, sw), (ph, pw) = conv.kernel_size, conv.stride, conv.padding
+        oh, ow = _out_hw(conv, height, width)
+        sel = torch.zeros(height * width, oh * ow, kh * kw, dtype=dtype)
+        for p in range(oh * ow):
+            for t in range(kh * kw):
+                i, j = p // ow * sh - ph + t // kw, p % ow * sw - pw + t % kw
+                if 0 <= i < height and 0 <= j < width:
+                    sel[i * width + j, p, t] = 1
+        sel = _selections[key] = sel.to(device)
+    return sel
+
+
+def small_map_operands(conv: nn.Conv2d, weight: torch.Tensor, bias, height: int,
+                       width: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """`conv` with `weight` and `bias` on a height x width map as a dense
+    matrix and a row: Wbig[(c, q), (k, p)] is the tap that links input pixel
+    q of channel c to output pixel p of channel k, or 0, and the bias is
+    repeated over the output pixels (None without one). Each entry of Wbig
+    is one weight or 0, picked by a 0/1 selection: exact."""
+    cout, cin, kh, kw = weight.shape
+    sel = _selection(conv, height, width, weight.device, weight.dtype)
+    big = torch.einsum("kct,qpt->cqkp", weight.reshape(cout, cin, kh * kw), sel)
+    big = big.reshape(cin * sel.shape[0], cout * sel.shape[1])
+    return big, None if bias is None else bias.repeat_interleave(sel.shape[1])
+
+
+def small_map_conv(conv: nn.Conv2d, x: torch.Tensor, operands) -> torch.Tensor:
+    """`conv`'s convolution of `x`, where `small_map(conv, x)`, as one GEMM
+    with `operands` (`small_map_operands` at x's map size): x as (N, Cin *
+    H * W), already that order in NCHW, times Wbig, plus the repeated bias,
+    is the (N, Cout * h * w) output in NCHW order. Only the products with
+    the zero padding are left out."""
+    big, bias = operands
+    x2 = x.reshape(x.shape[0], -1)
+    y = torch.mm(x2, big) if bias is None else torch.addmm(bias, x2, big)
+    return y.reshape(x.shape[0], -1, *_out_hw(conv, x.shape[-2], x.shape[-1]))
+
+
+class SmallMapConv(torch.autograd.Function):
+    """`conv`'s convolution of `x` where `small_map(conv, x)`, as autograd
+    records it: the forward is cuDNN's (`F.conv2d`), bit for bit the plain
+    route's, and the gradients are GEMMs against the unrolled weight,
+    dx = g Wbig^T and dWbig = x^T g, folded back onto the taps by the
+    selection: fixed-order sums, no atomics. The GEMMs run in the dtype the
+    convolution ran in (bfloat16 under autocast). The forward stays cuDNN's
+    so that a training step's forward rounds as the plain route's does:
+    Adam's first step moves each weight by the sign of its gradient, and a
+    forward rounded otherwise flips the signs of gradients near zero; three
+    CRW steps then land 2e-5 to 5e-5 apart in loss, against 2e-6 to 6e-6
+    between cuDNN's own algorithms (ResNet-10, B 8, T 20, H100).
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv):
+        y = F.conv2d(x, weight, bias, conv.stride, conv.padding)
+        ctx.conv, ctx.dtype, ctx.has_bias = conv, y.dtype, bias is not None
+        ctx.save_for_backward(x, weight)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        cout, cin = weight.shape[:2]
+        dt = ctx.dtype
+        with torch.autocast(x.device.type, enabled=False):
+            big, _ = small_map_operands(ctx.conv, weight.to(dt), None, *x.shape[-2:])
+            sel = _selection(ctx.conv, x.shape[-2], x.shape[-1], weight.device, dt)
+            q, p = sel.shape[:2]
+            g2 = gy.to(dt).reshape(gy.shape[0], cout * p)
+            dx = torch.mm(g2, big.t()).reshape(x.shape)
+            dbig = torch.mm(x.to(dt).reshape(x.shape[0], cin * q).t(), g2)
+            dw = torch.einsum("cqkp,qpt->kct", dbig.reshape(cin, q, cout, p), sel)
+            db = g2.reshape(-1, cout, p).sum((0, 2)) if ctx.has_bias else None
+        return dx.to(x.dtype), dw.reshape(weight.shape).to(weight.dtype), \
+            None if db is None else db.to(weight.dtype), None
+
+
 def conv_bn(conv: nn.Conv2d, bn: nn.Module, x: torch.Tensor, fold=None) -> torch.Tensor:
     """bn(conv(x)); with `fold` (conv -> `fold_conv_bn(conv, bn)`) the one
-    convolution that equals it in eval mode."""
+    convolution that equals it in eval mode. A convolution on a map of no
+    more pixels than its kernel has taps (`small_map`) takes
+    `SmallMapConv` where autograd records it, else one GEMM,
+    `small_map_conv` (the fold keeps its operands under (conv, H, W)); any
+    other runs on `conv` / `F.conv2d`. `small_map_convs` counts each route."""
+    gemm = small_map(conv, x)
+    small_map_convs["gemm" if gemm else "cudnn"] += 1
     if fold is None:
-        return bn(conv(x))
+        if not gemm:
+            return bn(conv(x))
+        if torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad):
+            return bn(SmallMapConv.apply(x, conv.weight, conv.bias, conv))
+        operands = small_map_operands(conv, conv.weight, conv.bias, *x.shape[-2:])
+        return bn(small_map_conv(conv, x, operands))
     weight, bias = fold[conv]
-    return F.conv2d(x, weight, bias, conv.stride, conv.padding, conv.dilation, conv.groups)
+    if not gemm:
+        return F.conv2d(x, weight, bias, conv.stride, conv.padding, conv.dilation, conv.groups)
+    key = (conv, *x.shape[-2:])
+    if key not in fold:
+        fold[key] = small_map_operands(conv, weight, bias, *x.shape[-2:])
+    return small_map_conv(conv, x, fold[key])
 
 
 class BasicBlock(nn.Module):

@@ -672,3 +672,96 @@ def test_graphed_chunk_equals_eager_steps(cuda, fused_bn, tmp_path):
         same_state(resumed, eager)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+# -- the ResNet's small-map convolutions as GEMMs (models/resnet.py) -------------
+# (Cin, Cout, H, stride) of layer2.conv2, layer3.conv1, layer3.conv2,
+# layer4.conv1 and layer4.conv2 on 16 x 16 patches, at the train cell's
+# batch of 8 x 20 x 113 patches
+SMALL_MAP_SHAPES = [(128, 128, 3, 1), (128, 256, 3, 2), (256, 256, 2, 1), (256, 512, 2, 2),
+                    (512, 512, 1, 1)]
+
+
+@pytest.fixture
+def full_float32(cuda):
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("cin,cout,size,stride", SMALL_MAP_SHAPES)
+def test_small_map_conv_matches_cudnn_at_the_train_shapes(full_float32, cin, cout, size,
+                                                           stride):
+    """At N 18,080: the GEMM forward (autograd recording nothing), and
+    `SmallMapConv`'s data and weight gradients, against a float64
+    convolution of the same inputs within 2e-5 of its largest magnitude (a
+    sum of up to 162,720 float32 products), and against cuDNN's float32
+    convolution (TF32 off) within 2e-4: cuDNN's own weight gradient at 3 x 3
+    and 2 x 2 maps is up to 8.8e-5 from float64 (on an H100), the GEMM's
+    9.3e-7. `SmallMapConv`'s forward is cuDNN's, bit for bit."""
+    from torch import nn
+
+    from radar_sounder_crw_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(cin + cout + size)
+    conv = nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False).to(full_float32)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * (2 / (9 * cout)) ** 0.5)
+    x = torch.randn(18080, cin, size, size, generator=gen).to(full_float32)
+    out = (size + 2 - 3) // stride + 1
+    g = torch.randn(18080, cout, out, out, generator=gen).to(full_float32)
+    assert resnet.small_map(conv, x)
+    results = {}
+    for name, weight, inp in (("gemm", conv.weight, x), ("cudnn", conv.weight, x),
+                              ("float64", conv.weight.double(), x.double())):
+        w = weight.detach().requires_grad_(True)
+        xi = inp.detach().requires_grad_(True)
+        if name == "gemm":
+            y = resnet.SmallMapConv.apply(xi, w, None, conv)
+            with torch.no_grad():
+                fwd = resnet.small_map_conv(conv, x, resnet.small_map_operands(
+                    conv, w, None, size, size))
+        else:
+            y = torch.nn.functional.conv2d(xi, w, None, stride, 1)
+        dx, dw = torch.autograd.grad(y, (xi, w), g.to(y.dtype))
+        results[name] = [t.detach().double() for t in (y, dx, dw)]
+    assert torch.equal(results["gemm"][0], results["cudnn"][0])
+    results["gemm"][0] = fwd.double()
+    for i, what in enumerate(("y", "dx", "dw")):
+        want = results["float64"][i]
+        scale = want.abs().max().item()
+        errs = {k: (results[k][i] - want).abs().max().item() / scale for k in ("gemm", "cudnn")}
+        apart = (results["gemm"][i] - results["cudnn"][i]).abs().max().item() / scale
+        assert errs["gemm"] <= 2e-5 and apart <= 2e-4, (what, errs, apart)
+
+
+def test_folded_small_map_forward_matches_the_plain_one(full_float32):
+    """The ResNet encoder's folded eval forward (its five small-map
+    convolutions as GEMMs on the folded weights, their operands kept with
+    the fold) against the plain eval forward of the same weights (grad
+    enabled: cuDNN's forward and eval BatchNorm, the small maps through
+    `SmallMapConv`), on 16 x 16 patches: within 1e-5; 5 GEMM and 8 cuDNN
+    convolutions a forward either way."""
+    from radar_sounder_crw_tpu_torch.models import create_model, resnet
+
+    model = create_model(1, True, device=full_float32, seed=3)
+    gen = torch.Generator().manual_seed(0)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.copy_(torch.randn(m.num_features, generator=gen) * 0.1)
+            m.running_var.copy_(torch.rand(m.num_features, generator=gen) + 0.5)
+    x = torch.randn(2000, 2, 16, 16, generator=gen).to(full_float32)
+    counts = []
+    for grad in (False, True, False):
+        before = dict(resnet.small_map_convs)
+        with torch.set_grad_enabled(grad):
+            emb = model(x).detach()
+        counts.append({k: resnet.small_map_convs[k] - before[k] for k in before})
+        if grad:
+            plain = emb
+        else:
+            folded = emb
+    assert counts == [{"gemm": 5, "cudnn": 8}] * 3
+    assert sum(isinstance(k, tuple) for k in model._fold[1]) == 5
+    assert (folded - plain).abs().max().item() <= 1e-5
