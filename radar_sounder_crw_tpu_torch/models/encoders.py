@@ -17,7 +17,9 @@ and the head `fc` runs in float32, so the embeddings come out float32.
 The ResNet's eval forward at float32 runs each convolution with its
 BatchNorm folded in (models/resnet.py `fold_conv_bn`) and no BatchNorm;
 `bn_fold` counts the forwards that took the fold ("folded"), those that
-did not ("plain", the CNN's too) and the folds built ("builds"). Training
+did not ("plain", the CNN's too) and the folds built ("builds"); `patches`
+counts the patches each kind of encoder took in, over every forward
+(eval or train, folded or not): a host-side add of the batch size. Training
 at float32 with the two-pass BatchNorm, the ResNet's stem (`fc0`, `bn0`)
 runs in float64 (`ResNetEncoder._stem`).
 """
@@ -34,6 +36,7 @@ from ..utils.device import resolve_device
 from .resnet import BatchNorm, ResNetCore, conv_bn, f32_head, fold_conv_bn, make_norm
 
 bn_fold = {"folded": 0, "plain": 0, "builds": 0}
+patches = {"cnn": 0, "resnet": 0}
 
 
 class _Encoder(nn.Module):
@@ -66,6 +69,7 @@ class CNNEncoder(_Encoder):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bn_fold["plain"] += 1
+        patches["cnn"] += x.shape[0]
         with self._autocast(x):
             x = self.pool(self.relu(self.conv1(x)))
             x = self.pool(self.relu(self.conv2(x)))
@@ -93,6 +97,7 @@ class ResNetEncoder(_Encoder):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fold = self._eval_fold()
         bn_fold["plain" if fold is None else "folded"] += 1
+        patches["resnet"] += x.shape[0]
         with self._autocast(x):
             feat = self.model.features(self.relu(self._stem(x, fold)), fold)
         return f32_head(self.model.fc, feat)
