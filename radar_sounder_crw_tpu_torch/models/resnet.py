@@ -14,6 +14,10 @@ weight gradients run as float32 GEMMs against its unrolled weight
 (`SmallMapConv`; cuDNN has no fast float32 backward for these maps), and a
 forward that autograd does not record runs as one such GEMM
 (`small_map_conv`), the same sums less the products with the zero padding.
+The stages' other convolutions whose input wants a gradient (`layer1`,
+`layer2.conv1`, the 1x1 downsamples) take their gradients as float32
+GEMMs on the im2col form (`Im2colGradConv`); every training forward
+stays cuDNN's.
 Submodule names are the reference state_dict names (`conv1`, `bn1`,
 `layer2.0.downsample.0`, `fc`), so weights load with `strict=True`.
 """
@@ -33,6 +37,10 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax momentum 0.9
 
 small_map_convs = {"gemm": 0, "cudnn": 0}  # convolutions run by conv_bn: GEMM, other
+# conv_bn calls that autograd records, by the route of their gradients:
+# SmallMapConv, Im2colGradConv, cuDNN's (5, 6 and 2 a ResNet-10 forward on
+# 16 x 16 patches; 0 without autograd and in the fold)
+conv_grad_routes = {"unrolled": 0, "im2col": 0, "cudnn": 0}
 _selections: dict = {}  # small-map selection tensors (_selection)
 
 
@@ -184,6 +192,12 @@ def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> tuple[torch.Tensor, tor
         return weight.float(), (shift * s + bn.bias.double()).float()
 
 
+def _plain(conv: nn.Conv2d) -> bool:
+    """A dense, undilated convolution with numeric zero padding."""
+    return (conv.groups == 1 and conv.dilation == (1, 1) and conv.padding_mode == "zeros"
+            and not isinstance(conv.padding, str))
+
+
 def small_map(conv: nn.Conv2d, x: torch.Tensor) -> bool:
     """Whether `conv` on `x` takes the small-map GEMMs (`SmallMapConv`,
     `small_map_conv`): a dense, undilated, zero-padded convolution whose
@@ -191,8 +205,7 @@ def small_map(conv: nn.Conv2d, x: torch.Tensor) -> bool:
     has pixels, so that the dense product does no more multiply-adds than
     the convolution."""
     kh, kw = conv.kernel_size
-    return (conv.groups == 1 and conv.dilation == (1, 1) and conv.padding_mode == "zeros"
-            and 1 < kh * kw and x.shape[-2] * x.shape[-1] <= kh * kw)
+    return _plain(conv) and 1 < kh * kw and x.shape[-2] * x.shape[-1] <= kh * kw
 
 
 def _out_hw(conv: nn.Conv2d, height: int, width: int) -> tuple[int, int]:
@@ -285,20 +298,117 @@ class SmallMapConv(torch.autograd.Function):
             None if db is None else db.to(weight.dtype), None
 
 
+def im2col_columns(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The im2col form of `conv`'s input x (N, Cin, H, W) as one (Cin·kh·kw,
+    N·L) matrix, L = h·w output pixels, rows in the order of the weight's
+    (Cin, kh, kw): a strided view of the zero-padded x, copied once.
+    `F.unfold` gives the same entries, but on CUDA launches one kernel a
+    sample (18,080 a call in a CRW step at B 8, T 20, N 113)."""
+    (kh, kw), (sh, sw), (ph, pw) = conv.kernel_size, conv.stride, conv.padding
+    n, cin = x.shape[:2]
+    oh, ow = _out_hw(conv, *x.shape[-2:])
+    xp = F.pad(x, (pw, pw, ph, ph)).contiguous()
+    sn, sc, sy, sx = xp.stride()
+    view = xp.as_strided((cin, kh, kw, n, oh, ow), (sc, sy, sx, sn, sy * sh, sx * sw))
+    return view.reshape(cin * kh * kw, n * oh * ow)
+
+
+def im2col_fold(conv: nn.Conv2d, cols: torch.Tensor, n: int, height: int,
+                width: int) -> torch.Tensor:
+    """The adjoint of `im2col_columns` (col2im): the (Cin·kh·kw, N·L)
+    columns summed back onto an (N, Cin, height, width) map, one strided add
+    a tap in the kernel's order: fixed-order sums, no atomics (faster on an
+    H100 at the CRW step's shapes than `F.fold`'s gather)."""
+    (kh, kw), (sh, sw), (ph, pw) = conv.kernel_size, conv.stride, conv.padding
+    oh, ow = _out_hw(conv, height, width)
+    taps = cols.reshape(-1, kh, kw, n, oh, ow)
+    out = cols.new_zeros(n, taps.shape[0], height + 2 * ph, width + 2 * pw)
+    for i in range(kh):
+        for j in range(kw):
+            out[:, :, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw] += \
+                taps[:, i, j].transpose(0, 1)
+    return out[:, :, ph:ph + height, pw:pw + width]
+
+
+class Im2colGradConv(torch.autograd.Function):
+    """`conv`'s convolution of `x` as autograd records it, where
+    `im2col_grad(conv, x)` (on 16 x 16 patches `layer1`, `layer2.conv1` and
+    the three 1x1 downsamples): the forward is cuDNN's
+    (`F.conv2d`), bit for bit the plain route's, for the reason
+    `SmallMapConv` gives; the gradients are GEMMs on the im2col form over
+    all N·L output positions, g as (Cout, N·L) and x's columns
+    (`im2col_columns`) as (Cin·kh·kw, N·L): dW = g colsᵀ, and dx is
+    Wᵀ g folded back onto the map (`im2col_fold`). Every sum has a fixed
+    order, so two backward passes are bit-equal. The GEMMs run in the dtype
+    the convolution ran in (bfloat16 under autocast). At layer1's 5 x 5
+    maps the unrolled weight of `SmallMapConv` would be 73 % zeros, and
+    cuDNN's float32 backward there is its FFT and legacy engines."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, conv):
+        y = F.conv2d(x, weight, bias, conv.stride, conv.padding)
+        ctx.conv, ctx.dtype, ctx.has_bias = conv, y.dtype, bias is not None
+        ctx.save_for_backward(x, weight)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        conv, dt = ctx.conv, ctx.dtype
+        n, cout = gy.shape[:2]
+        dx = dw = db = None
+        with torch.autocast(x.device.type, enabled=False):
+            g = gy.to(dt).transpose(0, 1).reshape(cout, -1)
+            if ctx.needs_input_grad[0]:
+                dcols = torch.mm(weight.to(dt).reshape(cout, -1).t(), g)
+                dx = im2col_fold(conv, dcols, n, *x.shape[-2:]).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = torch.mm(g, im2col_columns(conv, x.to(dt)).t())
+                dw = dw.reshape(weight.shape).to(weight.dtype)
+            if ctx.has_bias and ctx.needs_input_grad[2]:
+                db = g.sum(1).to(weight.dtype)
+        return dx, dw, db, None
+
+
+def im2col_grad(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+    """Whether `conv` on `x`, recorded by autograd and not `small_map`,
+    takes `Im2colGradConv`: a dense, undilated, zero-padded convolution of
+    at most 3 x 3 (the stages' convolutions) whose input wants a gradient.
+    A convolution of the data alone (the encoder's `fc0`) keeps cuDNN's
+    weight gradient. So does the stem's 7x7: its data gradient feeds the
+    eps-sized, all-cancellation gradients of `fc0` and `bn0`, whose signs
+    Adam's first step follows, and on the GEMMs it moved a CRW step at
+    B 8, T 20 off the float32 reference's loss by 3.2e-5 (one seed of 20,
+    H100), where cuDNN's gradient there read 1.7e-6 and the stages'
+    convolutions on the GEMMs at most 7.0e-6 over the 20."""
+    return _plain(conv) and max(conv.kernel_size) <= 3 and x.requires_grad
+
+
 def conv_bn(conv: nn.Conv2d, bn: nn.Module, x: torch.Tensor, fold=None) -> torch.Tensor:
     """bn(conv(x)); with `fold` (conv -> `fold_conv_bn(conv, bn)`) the one
     convolution that equals it in eval mode. A convolution on a map of no
     more pixels than its kernel has taps (`small_map`) takes
     `SmallMapConv` where autograd records it, else one GEMM,
     `small_map_conv` (the fold keeps its operands under (conv, H, W)); any
-    other runs on `conv` / `F.conv2d`. `small_map_convs` counts each route."""
+    other runs on `conv` / `F.conv2d`, recorded by autograd through
+    `Im2colGradConv` where its input wants a gradient (`im2col_grad`). The
+    forward autograd records is cuDNN's on every route: its gradients may
+    round otherwise, its forward may not (`SmallMapConv`).
+    `small_map_convs` counts the forward's routes, `conv_grad_routes` the
+    gradients' of each recorded call."""
     gemm = small_map(conv, x)
     small_map_convs["gemm" if gemm else "cudnn"] += 1
     if fold is None:
+        if torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad):
+            route = "unrolled" if gemm else "im2col" if im2col_grad(conv, x) else "cudnn"
+            conv_grad_routes[route] += 1
+            if route == "unrolled":
+                return bn(SmallMapConv.apply(x, conv.weight, conv.bias, conv))
+            if route == "im2col":
+                return bn(Im2colGradConv.apply(x, conv.weight, conv.bias, conv))
+            return bn(conv(x))
         if not gemm:
             return bn(conv(x))
-        if torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad):
-            return bn(SmallMapConv.apply(x, conv.weight, conv.bias, conv))
         operands = small_map_operands(conv, conv.weight, conv.bias, *x.shape[-2:])
         return bn(small_map_conv(conv, x, operands))
     weight, bias = fold[conv]

@@ -765,3 +765,54 @@ def test_folded_small_map_forward_matches_the_plain_one(full_float32):
     assert counts == [{"gemm": 5, "cudnn": 8}] * 3
     assert sum(isinstance(k, tuple) for k in model._fold[1]) == 5
     assert (folded - plain).abs().max().item() <= 1e-5
+
+
+# (cin, cout, kernel, stride, padding, map): the ResNet-10's convolutions that
+# take `Im2colGradConv` on 16 x 16 patches, and the stem's 7x7, which
+# `im2col_grad` leaves on cuDNN's gradients
+IM2COL_SHAPES = [(3, 64, 7, 2, 3, 18), (64, 64, 3, 1, 1, 5), (64, 128, 3, 2, 1, 5),
+                 (64, 128, 1, 2, 0, 5), (128, 256, 1, 2, 0, 3), (256, 512, 1, 2, 0, 2)]
+
+
+@pytest.mark.parametrize("cin,cout,kernel,stride,padding,size", IM2COL_SHAPES)
+def test_im2col_grad_conv_matches_cudnn_at_the_train_shapes(full_float32, cin, cout, kernel,
+                                                            stride, padding, size):
+    """At N 18,080: `Im2colGradConv`'s data and weight gradients against a
+    float64 convolution of the same inputs within 2e-5 of its largest
+    magnitude (a weight gradient sums up to 1,464,480 float32 products),
+    and against cuDNN's float32 convolution (TF32 off) within 2e-4; its
+    forward is cuDNN's, bit for bit, and two backward passes are bit-equal."""
+    from torch import nn
+
+    from radar_sounder_crw_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(cin + cout + kernel + size)
+    conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                     bias=False).to(full_float32)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen)
+                          * (2 / (kernel * kernel * cout)) ** 0.5)
+    x = torch.randn(18080, cin, size, size, generator=gen).to(full_float32)
+    assert not resnet.small_map(conv, x)
+    out = (size + 2 * padding - kernel) // stride + 1
+    g = torch.randn(18080, cout, out, out, generator=gen).to(full_float32)
+    results = {}
+    for name, weight, inp in (("im2col", conv.weight, x), ("again", conv.weight, x),
+                              ("cudnn", conv.weight, x),
+                              ("float64", conv.weight.double(), x.double())):
+        w = weight.detach().requires_grad_(True)
+        xi = inp.detach().requires_grad_(True)
+        if name in ("im2col", "again"):
+            y = resnet.Im2colGradConv.apply(xi, w, None, conv)
+        else:
+            y = torch.nn.functional.conv2d(xi, w, None, stride, padding)
+        dx, dw = torch.autograd.grad(y, (xi, w), g.to(y.dtype))
+        results[name] = [t.detach().double() for t in (y, dx, dw)]
+    assert torch.equal(results["im2col"][0], results["cudnn"][0])
+    assert all(torch.equal(a, b) for a, b in zip(results["im2col"], results["again"]))
+    for i, what in enumerate(("dx", "dw"), 1):
+        want = results["float64"][i]
+        scale = want.abs().max().item()
+        errs = {k: (results[k][i] - want).abs().max().item() / scale for k in ("im2col", "cudnn")}
+        apart = (results["im2col"][i] - results["cudnn"][i]).abs().max().item() / scale
+        assert errs["im2col"] <= 2e-5 and apart <= 2e-4, (what, errs, apart)
