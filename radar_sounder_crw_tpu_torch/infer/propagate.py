@@ -166,7 +166,8 @@ class PropagationPipeline:
     ):
         """The seed->map device work without the host fetch: returns device
         tensors (soft, pred, xent, sig, emb), entries None when not computed."""
-        seq = torch.as_tensor(seq, dtype=torch.float32, device=self.device)
+        with span("crw.upload"):
+            seq = torch.as_tensor(seq, dtype=torch.float32, device=self.device)
         if use_last:
             seq = seq.flip(0)
         N = seq.shape[1]
@@ -191,28 +192,30 @@ class PropagationPipeline:
         segmentation patch covering the first frame's pixels (the last
         frame's with use_last). Change detection runs only when
         detect_change and T >= 4. fetch_xent=False drops the xent metric;
-        return_soft also returns the (T, N, M) soft-label history."""
-        T = len(seq)
-        compute_sig = detect_change and T >= 4
-        soft, pred, xent, sig, emb = self.propagate_device(
-            seq, seg_ref, use_last, compute_sig, compute_xent=fetch_xent
-        )
-        change_idx = None
-        if compute_sig:
-            change_idx = detect_change_point(sig.cpu().numpy(), pen=self.pelt_pen)
-        result = PropagateResult(
-            prediction=pred.T.to(torch.int32).cpu().numpy(),  # (N, T)
-            xent=xent.cpu().numpy() if xent is not None else None,
-            change_idx=change_idx,
-            soft=soft.cpu().numpy() if return_soft else None,
-        )
-        if self.cache_embeddings:
-            self._cache = {
-                "emb": emb,
-                "prediction": result.prediction,
-                "xent": result.xent,
-            }
-        return result
+        return_soft also returns the (T, N, M) soft-label history. The
+        whole call runs in the span `crw.seed`."""
+        with span("crw.seed"):
+            T = len(seq)
+            compute_sig = detect_change and T >= 4
+            soft, pred, xent, sig, emb = self.propagate_device(
+                seq, seg_ref, use_last, compute_sig, compute_xent=fetch_xent
+            )
+            change_idx = None
+            if compute_sig:
+                change_idx = detect_change_point(sig.cpu().numpy(), pen=self.pelt_pen)
+            result = PropagateResult(
+                prediction=pred.T.to(torch.int32).cpu().numpy(),  # (N, T)
+                xent=xent.cpu().numpy() if xent is not None else None,
+                change_idx=change_idx,
+                soft=soft.cpu().numpy() if return_soft else None,
+            )
+            if self.cache_embeddings:
+                self._cache = {
+                    "emb": emb,
+                    "prediction": result.prediction,
+                    "xent": result.xent,
+                }
+            return result
 
     @torch.no_grad()
     def reseed_device(self, seg_ref, frame_idx: int = 0, bucket: int = 16):
@@ -248,14 +251,16 @@ class PropagationPipeline:
         call's map as refined by earlier reseeds), so refinements
         accumulate. With use_last in the cached call, frame_idx counts
         flipped frames. Returns the spliced (N, T) map, the cached xent and
-        change_idx None."""
-        pred, tail_len = self.reseed_device(seg_ref, frame_idx, bucket)
-        cache = self._cache
-        tail = pred[:tail_len].T.to(torch.int32).cpu().numpy()  # (N, T-f)
-        full = cache["prediction"].copy()
-        full[:, frame_idx:] = tail
-        cache["prediction"] = full
-        return PropagateResult(prediction=full, xent=cache["xent"], change_idx=None, soft=None)
+        change_idx None. The whole call runs in the span `crw.reseed`."""
+        with span("crw.reseed"):
+            pred, tail_len = self.reseed_device(seg_ref, frame_idx, bucket)
+            cache = self._cache
+            tail = pred[:tail_len].T.to(torch.int32).cpu().numpy()  # (N, T-f)
+            full = cache["prediction"].copy()
+            full[:, frame_idx:] = tail
+            cache["prediction"] = full
+            return PropagateResult(prediction=full, xent=cache["xent"], change_idx=None,
+                                   soft=None)
 
     def prediction_to_pixels(self, prediction: np.ndarray, out_hw: tuple[int, int]):
         """Upsample the (N, T) patch-grid map to pixels (nearest), in the
@@ -335,12 +340,16 @@ class PropagationPipeline:
         (predictions, change indices), the change detection running on the
         batched xent signal (device) and per-radargram PELT (host); with
         return_xent=True the (R, N, T-1) xent maps are appended last. Each
-        radargram's result is what `__call__` computes on its window."""
-        pred, sigs, xents, real = self.propagate_survey_device(
-            source, window_ids, seg_refs, length=length, frame_offsets=frame_offsets,
-            mesh=mesh, use_last=use_last, detect_change=detect_change, return_xent=return_xent,
-        )
-        return self._fetch_batched(pred, sigs, xents, real, detect_change, return_xent)
+        radargram's result is what `__call__` computes on its window. The
+        whole call, device work, fetch and PELT, runs in the span
+        `crw.survey`."""
+        with span("crw.survey"):
+            pred, sigs, xents, real = self.propagate_survey_device(
+                source, window_ids, seg_refs, length=length, frame_offsets=frame_offsets,
+                mesh=mesh, use_last=use_last, detect_change=detect_change,
+                return_xent=return_xent,
+            )
+            return self._fetch_batched(pred, sigs, xents, real, detect_change, return_xent)
 
     def propagate_survey_device(
         self, source, window_ids, seg_refs, *, length: int | None = None,
@@ -466,10 +475,12 @@ class PropagationPipeline:
         """Upload `rg_host` once and reuse it across passes (forward,
         reverse, every correction bucket). The memo holds the host array
         itself and compares by identity: an id() key could alias a
-        collected array's recycled address."""
+        collected array's recycled address. The upload runs in the span
+        `crw.upload`."""
         memo = getattr(self, "_rg_memo", None)
         if memo is not None and memo[0] is rg_host:
             return memo[1]
-        rg_dev = torch.as_tensor(rg_host, dtype=torch.float32, device=self.device)
+        with span("crw.upload"):
+            rg_dev = torch.as_tensor(rg_host, dtype=torch.float32, device=self.device)
         self._rg_memo = (rg_host, rg_dev)
         return rg_dev

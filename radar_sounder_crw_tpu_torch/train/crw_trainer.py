@@ -196,22 +196,26 @@ class CRWTrainer:
 
     # -- steps ---------------------------------------------------------------
     def _upload(self, batch) -> torch.Tensor:
-        """A host batch onto the device without waiting for the copy."""
-        t = torch.as_tensor(np.asarray(batch, np.float32))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        """A host batch onto the device without waiting for the copy, in
+        the span `crw.upload`."""
+        with span("crw.upload"):
+            t = torch.as_tensor(np.asarray(batch, np.float32))
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
 
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step on a batch (B, T, N, h, w) of any size: a host
         array, or a tensor already on the device (after `init_state`). The
-        loss is the whole batch's, on every rank."""
-        B = batch.shape[0]
-        sharded = self.mesh.shards(B)
-        if sharded:
-            batch = shard_batch(batch, self.mesh)
-        seq = batch if isinstance(batch, torch.Tensor) else self._upload(batch)
-        return self._run(seq.to(self.device, torch.float32), B, sharded)
+        loss is the whole batch's, on every rank. The whole step runs in the
+        span `crw.step`."""
+        with span("crw.step"):
+            B = batch.shape[0]
+            sharded = self.mesh.shards(B)
+            if sharded:
+                batch = shard_batch(batch, self.mesh)
+            seq = batch if isinstance(batch, torch.Tensor) else self._upload(batch)
+            return self._run(seq.to(self.device, torch.float32), B, sharded)
 
     def _run(self, seq: torch.Tensor, batch_size: int, sharded: bool) -> torch.Tensor:
         """The step on this rank's rows `seq` of a batch of `batch_size`."""

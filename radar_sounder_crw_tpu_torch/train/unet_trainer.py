@@ -139,12 +139,14 @@ class UNetTrainer:
 
     def train_step(self, x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
         """One Adam step on the batch x (B, 1, H, W), onehot (B, H, W, M),
-        device tensors; the whole batch's loss (detached)."""
-        B = x.shape[0]
-        sharded = self.mesh.shards(B)
-        if sharded:
-            x, onehot = shard_batch(x, self.mesh), shard_batch(onehot, self.mesh)
-        return self._run(x, onehot, B, sharded)
+        device tensors; the whole batch's loss (detached). The whole step
+        runs in the span `crw.unet.step`."""
+        with span("crw.unet.step"):
+            B = x.shape[0]
+            sharded = self.mesh.shards(B)
+            if sharded:
+                x, onehot = shard_batch(x, self.mesh), shard_batch(onehot, self.mesh)
+            return self._run(x, onehot, B, sharded)
 
     def _run(self, x, onehot, batch_size: int, sharded: bool) -> torch.Tensor:
         """The step on this rank's rows of a batch of `batch_size`: sharded,

@@ -1,9 +1,14 @@
 """Spans and traces.
 
 `span` marks one layer of the port on a `torch.profiler` recording's
-timeline and costs a flag read when no profiler runs; `profile_trace`
-records a `torch.profiler` Chrome trace (`cli.train --profile_dir`), the
-spans included.
+timeline and costs a flag read when no profiler runs. Each entry point
+records a root span that holds its layers' spans: `crw.survey`
+(`PropagationPipeline.propagate_survey`), `crw.seed` (`__call__`),
+`crw.reseed` (`reseed`), `crw.step` (`CRWTrainer.train_step`) and
+`crw.unet.step` (`UNetTrainer.train_step`); `crw.upload` marks each
+host-to-device copy of input data. `profile_trace` records a
+`torch.profiler` Chrome trace (`cli.train --profile_dir`), the spans
+included.
 """
 
 from __future__ import annotations

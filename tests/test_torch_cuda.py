@@ -816,3 +816,29 @@ def test_im2col_grad_conv_matches_cudnn_at_the_train_shapes(full_float32, cin, c
         errs = {k: (results[k][i] - want).abs().max().item() / scale for k in ("im2col", "cudnn")}
         apart = (results["im2col"][i] - results["cudnn"][i]).abs().max().item() / scale
         assert errs["im2col"] <= 2e-5 and apart <= 2e-4, (what, errs, apart)
+
+
+def test_a_span_holds_the_device_idle_of_a_host_sleep(cuda):
+    """The port's spans and the card's events share kineto's clock: a 50 ms
+    host sleep between two kernels inside a `crw.*` span reads, in the
+    benchmark's attribution (portbench/spans.py `idle_by_span`), as at
+    least 45 ms of device idle under that span."""
+    import time
+
+    from portbench import spans
+    from portbench import trace as tr
+    from radar_sounder_crw_tpu_torch.utils import span
+
+    x = torch.randn(1024, 1024, device=cuda)
+    (x @ x).sum().item()  # the context and cuBLAS warm
+    with tr.profiled() as prof:
+        with tr.span("window"):
+            with span("crw.clock"):
+                y = x @ x
+                time.sleep(0.05)
+                y = y @ x
+            torch.cuda.synchronize()
+    trace = tr.Trace(prof, 1, {}, {})
+    idle = spans.of(trace).idle_by_span(trace.busy)
+    print(f"idle s by span {idle}; busy {trace.busy_s} s of {trace.window_s} s")
+    assert idle.get("crw.clock", 0.0) >= 0.045, idle

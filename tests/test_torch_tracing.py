@@ -1,16 +1,23 @@
 """The port's spans (`utils.profiling.span`) on the CPU: a shared no-op with
 no profiler running; under `torch.profiler` the `crw.*` spans of the
 seed->map call (one `crw.frames` a propagation call on every route), the
-CRW step and the host assembly, FUNCTION-scope (not
-user annotations, so not mirrored onto a device's timeline) and nested in
-the caller's span; and the same outputs with the profiler on and off."""
+survey, the reseed, the CRW step and the host assembly, FUNCTION-scope
+(not user annotations, so not mirrored onto a device's timeline), each
+entry point's inside its root span (`crw.survey`, `crw.seed`,
+`crw.reseed`, `crw.step`) and nested in the caller's span; and the same
+outputs with the profiler on and off."""
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from radar_sounder_crw_tpu_torch.data import extract_window, synthetic_radargram, window_geometry
+from radar_sounder_crw_tpu_torch.data import (
+    RGWindows,
+    extract_window,
+    synthetic_radargram,
+    window_geometry,
+)
 from radar_sounder_crw_tpu_torch.infer import (
     PropagationPipeline,
     integrate_bidirectional,
@@ -38,6 +45,23 @@ def _events(prof):
 
 def _crw(prof):
     return [e for e in _events(prof) if e[0].startswith("crw.")]
+
+
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def _root_holds(prof, root, leaves):
+    """The one `root` span of the recording, and its spans `leaves` (each
+    once, in this order), all nested inside it."""
+    spans = _crw(prof)
+    roots = [e for e in spans if e[0] == root]
+    assert len(roots) == 1, [e[0] for e in spans]
+    held = [e for e in spans if e[0] in leaves]
+    assert [e[0] for e in held] == list(leaves)
+    for e in held:
+        assert _inside(e, roots[0]), e[0]
+    return roots[0], held
 
 
 @pytest.fixture(scope="module")
@@ -71,10 +95,12 @@ def test_seed_call_spans_nest_in_the_caller(window, pipe):
             pipe(seq, seg_ref, detect_change=True)
     caller = next(e for e in _events(prof) if e[0] == "caller")
     spans = _crw(prof)
-    assert [e[0] for e in spans] == ["crw.encode", "crw.frames", "crw.pelt"]
+    assert [e[0] for e in spans] == ["crw.seed", "crw.upload", "crw.encode", "crw.frames",
+                                     "crw.pelt"]
     for name, start, end, user in spans:
         assert not user, name
         assert caller[1] <= start and end <= caller[2], name
+    _root_holds(prof, "crw.seed", ["crw.upload", "crw.encode", "crw.frames", "crw.pelt"])
 
 
 @pytest.mark.parametrize("kernel", ["torch", "cuda", "cuda_seq"])
@@ -102,9 +128,48 @@ def test_train_step_spans_in_order():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         trainer.train_step(batch)
     spans = _crw(prof)
-    assert [e[0] for e in spans] == ["crw.encode", "crw.loss", "crw.backward", "crw.optimizer"]
-    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:])), "phases overlap"
+    assert [e[0] for e in spans] == ["crw.step", "crw.upload", "crw.encode", "crw.loss",
+                                     "crw.backward", "crw.optimizer"]
+    _, phases = _root_holds(prof, "crw.step", ["crw.encode", "crw.loss", "crw.backward",
+                                               "crw.optimizer"])
+    assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:])), "phases overlap"
     assert not any(e[3] for e in spans)
+
+
+@pytest.fixture(scope="module")
+def survey():
+    rg, seg = synthetic_radargram(H=64, W=520, nclasses=NCLS, seed=5, change_point=0.5)
+    ds = RGWindows(rg, length=T, dim=(16, 16), overlap=(8, 0))
+    rg_len = ds.geo.rg_len()
+    ids = list(range(0, len(ds) - T + 1, T))[:2]
+    refs = [seg[: ds.geo.rg_h(), rg_len * k: rg_len * k + 16] for k in range(len(ids))]
+    return ds, ids, refs
+
+
+def test_survey_spans_nest_in_one_root(survey):
+    """A survey call's encode, frame loop and PELT lie inside one
+    `crw.survey`, the radargram's upload too on its first call; a second
+    call on the same radargram finds the upload memoized."""
+    ds, ids, refs = survey
+    model = create_model(1, False, device="cpu", seed=3)
+    fresh = PropagationPipeline(model, LP, NCLS, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fresh.propagate_survey(ds, ids, refs, detect_change=True)
+    _root_holds(prof, "crw.survey", ["crw.upload", "crw.encode", "crw.frames"]
+                + ["crw.pelt"] * len(ids))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fresh.propagate_survey(ds, ids, refs, use_last=True)
+    _root_holds(prof, "crw.survey", ["crw.encode", "crw.frames"])
+    assert "crw.upload" not in [e[0] for e in _crw(prof)]
+
+
+def test_reseed_spans_nest_in_one_root(window, pipe):
+    seq, seg_ref = window
+    pipe(seq, seg_ref, detect_change=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pipe.reseed(seg_ref, 3, bucket=4)
+    _root_holds(prof, "crw.reseed", ["crw.frames"])
+    assert [e[0] for e in _crw(prof)] == ["crw.reseed", "crw.frames"]
 
 
 def test_assembly_spans(pipe):
@@ -121,23 +186,29 @@ def test_assembly_spans(pipe):
         "crw.assemble.merge", "crw.assemble.merge"]
 
 
-def _outputs(window, pipe):
+def _outputs(window, pipe, survey):
     seq, seg_ref = window
     res = pipe(seq, seg_ref, detect_change=True)
+    reseeded = pipe.reseed(seg_ref, 2, bucket=4).prediction
+    lines = pipe.propagate_survey(*survey, detect_change=True)
     rg, _ = synthetic_radargram(H=40, W=300, seed=7)
     trainer = CRWTrainer(CRWTrainConfig(model=0, batch_size=2, seq_length=4), device="cpu")
     geo = window_geometry(rg.shape, (16, 16), (8, 0), 4)
     batch = np.stack([extract_window(rg, geo, i) for i in (1, 5)])
     trainer.init_state(batch.shape[1:])
-    return res, trainer.train_step(batch)
+    return res, reseeded, lines, trainer.train_step(batch)
 
 
-def test_outputs_equal_with_the_profiler_on_and_off(window, pipe):
-    off, loss_off = _outputs(window, pipe)
+def test_outputs_equal_with_the_profiler_on_and_off(window, pipe, survey):
+    """A seed call, a reseed, a survey call and a CRW step."""
+    off, reseed_off, (lines_off, change_off), loss_off = _outputs(window, pipe, survey)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        on, loss_on = _outputs(window, pipe)
-    assert _crw(prof), "the profiled run recorded no span"
+        on, reseed_on, (lines_on, change_on), loss_on = _outputs(window, pipe, survey)
+    assert {"crw.seed", "crw.reseed", "crw.survey", "crw.step"} <= {e[0] for e in _crw(prof)}
     np.testing.assert_array_equal(on.prediction, off.prediction)
     np.testing.assert_array_equal(on.xent, off.xent)
     assert on.change_idx == off.change_idx
+    np.testing.assert_array_equal(reseed_on, reseed_off)
+    np.testing.assert_array_equal(lines_on, lines_off)
+    assert change_on == change_off
     assert torch.equal(loss_on, loss_off)

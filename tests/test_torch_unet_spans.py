@@ -1,7 +1,8 @@
 """The UNet baseline's spans (`utils.profiling.span`) on the CPU: under
 `torch.profiler` one `train_step(*gather(ids))` records `crw.unet.gather`,
-`.forward`, `.loss`, `.backward` and `.optimizer` once each, in order, and
-`crw.unet.up` once per decoder level inside the forward, around the
+`.forward`, `.loss`, `.backward` and `.optimizer` once each, in order, the
+last four inside the step's root `crw.unet.step`, and `crw.unet.up` once
+per decoder level inside the forward, around the
 upsample (bilinear or the transposed convolution), pad and concat only;
 with no profiler `span` is the one shared no-op; the step's loss and
 parameters are bit-equal with the profiler on and off; and `gather` serves
@@ -53,9 +54,11 @@ def test_a_step_records_each_phase_once_and_up_per_level():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         t.train_step(*t.gather(np.array([4, 1])))
     ev = _events(prof)
-    phases = [e for e in ev if e[0] != "crw.unet.up"]
+    phases = [e for e in ev if e[0] not in ("crw.unet.up", "crw.unet.step")]
     assert [e[0] for e in phases] == PHASES
     assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:])), "phases overlap"
+    (root,) = [e for e in ev if e[0] == "crw.unet.step"]
+    assert all(root[1] <= s and e <= root[2] for _, s, e in phases[1:])
     forward = phases[1]
     ups = [e for e in ev if e[0] == "crw.unet.up"]
     assert len(ups) == 3
